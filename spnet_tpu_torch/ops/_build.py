@@ -1,0 +1,85 @@
+"""Build and load the port's CUDA kernels.
+
+The sources under `spnet_tpu_torch/csrc/` are compiled with `nvcc` into
+one shared library with a plain C interface, loaded with `ctypes`.  The
+build happens at first use, into `spnet_tpu_torch/_build/` (git-ignored),
+and again whenever the sources or the flags change: the library's file
+name carries their hash.  Nothing here runs at import time, so the module
+imports on hosts without `nvcc` or a card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+SOURCES = ("sepconv.cu",)
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC",
+)
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(cand):
+        return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES:
+        h.update((CSRC / name).read_bytes())
+    return BUILD_DIR / f"libspnet_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> tuple[Path, float]:
+    """Compile the kernels unless a library of the current sources exists.
+
+    Returns (library path, seconds spent compiling; 0.0 when cached).
+    The library is written to a temporary name and renamed into place, so
+    processes building it at the same time never load a half-written file."""
+    path = library_path()
+    if path.exists():
+        return path, 0.0
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
+           *(str(CSRC / name) for name in SOURCES)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+            f"{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, path)
+    return path, seconds
+
+
+@functools.lru_cache(maxsize=None)
+def load_library() -> ctypes.CDLL:
+    """Build if needed, load once per process, declare the C signatures."""
+    path, _ = build()
+    lib = ctypes.CDLL(str(path))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.spnet_sepconv_infer.argtypes = [p, p, p, p, p, p,
+                                        i, i, i, i, i, i, i, p]
+    lib.spnet_sepconv_infer.restype = i
+    return lib
