@@ -2,10 +2,13 @@
 Hopper (H100).
 
 The port mirrors the JAX package's module names.  It covers the serving
-path so far: checkpoint -> SPNet (colorizer stem + Xception + dense grid
-head) -> batched predict -> denormalize -> metrics / CSV.  Every Xception
-separable convolution runs through the hand-written CUDA kernel in
-`csrc/sepconv.cu`.  The package imports torch and never jax; it reuses the
+path (checkpoint -> SPNet: colorizer stem + Xception + dense grid head ->
+batched predict -> denormalize -> metrics / CSV), with every Xception
+separable convolution of the eval-mode model in the hand-written CUDA
+kernel of `csrc/sepconv.cu`, and the training path (device-resident
+uint8 feed -> augmentation -> train-mode forward -> loss -> backward ->
+Adam under the 1-cycle schedule), with the loss and its gradient in the
+CUDA kernels of `csrc/loss.cu`.  The package imports torch and never jax; it reuses the
 jax-free modules of `spnet_tpu` (config, grid, data.dataset, io.render).
 """
 

@@ -1,13 +1,14 @@
 """Unified CLI: `python -m spnet_tpu_torch <command> [args...]`.
 
-Commands ported so far (the serving path):
+Commands ported so far (the training and serving paths):
 
+  train            train, then evaluate            (train_spnet.py)
   evaluate         score on a labeled dataset      (evaluate_spnet.py)
   predict          label-free batch inference      (predict_spnet.py)
 
-Both take a port checkpoint directory (`-w`, see `io/checkpoint.py`; a
-JAX checkpoint converts with `scripts/flax_ckpt_to_torch.py`) and
-`--device` (default `cuda`).
+All take a port checkpoint directory (`-w`, see `io/checkpoint.py`; a
+JAX checkpoint converts with `scripts/flax_ckpt_to_torch.py`; `train`
+resumes from it when present) and `--device` (default `cuda`).
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import importlib
 import sys
 
 _COMMANDS = {
+    "train": "spnet_tpu_torch.cli.train",
     "evaluate": "spnet_tpu_torch.cli.evaluate",
     "predict": "spnet_tpu_torch.cli.predict",
 }

@@ -11,7 +11,6 @@ from __future__ import annotations
 import argparse
 import os
 
-from spnet_tpu.data.dataset import build_dataset
 from spnet_tpu_torch.cli.common import (
     add_device_arg,
     load_model_and_state,
@@ -19,6 +18,7 @@ from spnet_tpu_torch.cli.common import (
 )
 from spnet_tpu_torch.eval.evaluate import evaluate_network
 from spnet_tpu_torch.io.checkpoint import save_checkpoint
+from spnet_tpu_torch.shared import build_dataset
 
 
 def main(argv=None):

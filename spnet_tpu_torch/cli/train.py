@@ -1,0 +1,125 @@
+"""`python -m spnet_tpu_torch train` — train, then evaluate.
+
+Flags mirror `spnet_tpu/cli/train.py` (reference `train_spnet.py:96-112`),
+plus `--device` (default `cuda`).  Training runs on the device-resident
+feed on one device; `--geo_augment`, `--use_tb`, `--profile`,
+`--epoch_repeats` other than 1 and `--predict_dir` are not ported yet and
+raise.  After training it evaluates on Test/ (Val/ when there is no
+Test/), and writes the final weights into the log directory.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+
+from spnet_tpu_torch.cli.common import (
+    add_device_arg,
+    add_model_args,
+    config_from_args,
+    parse_grid,
+    resolve_device,
+    timestamped_log_dir,
+)
+from spnet_tpu_torch.eval.evaluate import evaluate_network
+from spnet_tpu_torch.io.checkpoint import save_train_state
+from spnet_tpu_torch.shared import build_dataset
+from spnet_tpu_torch.train.loop import train_network
+
+
+def _refuse_unported(args) -> None:
+    flags = [flag for flag, bad in (
+        ("--geo_augment", args.geo_augment),
+        ("--use_tb", args.use_tb),
+        ("--profile", args.profile),
+        ("--epoch_repeats", args.epoch_repeats != 1),
+        ("--predict_dir", bool(args.predict_dir)),
+    ) if bad]
+    if flags:
+        raise NotImplementedError(
+            f"not ported to spnet_tpu_torch yet: {', '.join(flags)}")
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(
+        description="trains network on training dataset",
+        formatter_class=argparse.ArgumentDefaultsHelpFormatter,
+    )
+    p.add_argument("-b", "--batch_size", type=int, default=16)
+    p.add_argument("-d", "--datapath", default="./",
+                   help="directory with Train/ and Val/ subdirs")
+    p.add_argument("-e", "--epochs", type=int, default=100)
+    p.add_argument("-f", "--fraction", type=float, default=1.0)
+    p.add_argument("--freeze_fac", type=float, default=0.0)
+    p.add_argument("--frozen_epochs", type=int, default=0)
+    p.add_argument("-g", "--grid", type=parse_grid, default=(6, 6, 2),
+                   help="predictor grid, e.g. 6x6x2")
+    p.add_argument("-w", "--weights", default="ckpt",
+                   help="checkpoint directory (auto-resume if present)")
+    p.add_argument("-l", "--lrmax", type=float, default=4e-5)
+    p.add_argument("-n", "--noaugment", action="store_true")
+    p.add_argument("--blur_prob", type=float, default=0.0,
+                   help="train-time Gaussian-blur probability")
+    p.add_argument("--geo_augment", action="store_true",
+                   help="geometric augmentation (not ported yet: raises)")
+    p.add_argument("--epoch_repeats", type=int, default=1,
+                   help="passes per epoch (only 1 is ported)")
+    p.add_argument("--use_tb", action="store_true",
+                   help="TensorBoard event files (not ported yet: raises)")
+    p.add_argument("--name", default="")
+    p.add_argument("-r", "--random_seed", type=int, default=1)
+    p.add_argument("--no-eval", action="store_true",
+                   help="skip the post-training evaluation")
+    p.add_argument("--predict_dir", default="",
+                   help="label-free prediction after evaluation (not "
+                        "ported yet: any value raises)")
+    p.add_argument("--drop-overflow", action="store_true",
+                   help="tolerate >preds_per_cell ellipses in a grid "
+                        "cell (drop extras) instead of failing")
+    p.add_argument("--profile", action="store_true",
+                   help="device trace of the run (not ported yet: raises)")
+    add_model_args(p)
+    add_device_arg(p)
+    args = p.parse_args(argv)
+    _refuse_unported(args)
+
+    print("Command line ~= \n", " ".join(sys.argv))
+    print("args = ", args)
+    device = resolve_device(args.device)
+    cfg = config_from_args(args, args.grid)
+    log_dir = timestamped_log_dir(args.name)
+    print("Logging to", log_dir)
+
+    ovf = "drop" if args.drop_overflow else "raise"
+    size = cfg.model.input_size or None
+    train_ds = build_dataset(
+        os.path.join(args.datapath, "Train"), cfg.grid,
+        load_frac=args.fraction, batch_size=args.batch_size,
+        input_size=size, seed=args.random_seed, on_overflow=ovf)
+    val_ds = build_dataset(
+        os.path.join(args.datapath, "Val"), cfg.grid,
+        batch_size=args.batch_size, shuffle=False, input_size=size,
+        on_overflow=ovf)
+    state, _ = train_network(cfg, train_ds, val_ds, device, log_dir=log_dir,
+                             ckpt_dir=args.weights)
+
+    if not args.no_eval:
+        print("\n----------------------------\nStarting model evaluation...")
+        testpath = os.path.join(args.datapath, "Test")
+        if not os.path.isdir(testpath):
+            testpath = os.path.join(args.datapath, "Val")
+        test_ds = build_dataset(testpath, cfg.grid,
+                                batch_size=args.batch_size, shuffle=False,
+                                input_size=size)
+        evaluate_network(cfg, state.model, test_ds, device,
+                         log_dir="logs/Evaluation/")
+
+    final_dir = os.path.join(log_dir, "final_weights")
+    save_train_state(final_dir, state, cfg)
+    print(f"Final weights + config saved to {final_dir}")
+    print("SPNet-TPU execution completed.")
+
+
+if __name__ == "__main__":
+    main()

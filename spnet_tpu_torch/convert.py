@@ -11,7 +11,9 @@ transform per leaf:
 
 `flax_to_state_dict` checks the result against a model: every flax leaf
 must land on a key of the model, with the model's shape, and every key of
-the model must be filled.  Inputs are nested dicts of numpy arrays (what
+the model must be filled.  `flax_tree_to_torch` applies the same
+transforms to any params-shaped tree (gradients, Adam moments), keyed like
+`model.named_parameters()`.  Inputs are nested dicts of numpy arrays (what
 `spnet_tpu.io.checkpoint.load_checkpoint` returns); no jax is needed.
 """
 
@@ -63,10 +65,22 @@ def flax_to_state_dict(params: Mapping, batch_stats: Mapping,
     """Convert flax `params` + `batch_stats` into `model`'s state_dict
     (float32 CPU tensors).  Raises ValueError naming every leaf left over,
     every key left empty and every shape that does not match."""
-    target = model.state_dict()
+    return _convert(list(_leaves(params)) + list(_leaves(batch_stats)),
+                    model.state_dict())
+
+
+def flax_tree_to_torch(tree: Mapping, model: nn.Module
+                       ) -> dict[str, torch.Tensor]:
+    """Convert any params-shaped flax tree (parameters, gradients, Adam
+    moments) leaf by leaf with the same transforms; the result is keyed
+    like `model.named_parameters()` and checked against it."""
+    return _convert(list(_leaves(tree)), dict(model.named_parameters()))
+
+
+def _convert(leaves, target: Mapping) -> dict[str, torch.Tensor]:
     out: dict[str, torch.Tensor] = {}
     problems = []
-    for path, leaf in list(_leaves(params)) + list(_leaves(batch_stats)):
+    for path, leaf in leaves:
         key, arr = _convert_leaf(path, leaf)
         if key not in target:
             problems.append(f"flax leaf {'/'.join(path)} -> {key}: no such "

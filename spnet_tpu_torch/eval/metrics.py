@@ -21,13 +21,13 @@ import dataclasses
 
 import numpy as np
 
-from spnet_tpu.config import (
+from spnet_tpu_torch.ops.raster import pair_iou
+from spnet_tpu_torch.shared import (
     GridSpec,
     IND_NOOBJ,
     IND_RINGS,
     VARS_PER_PRED,
 )
-from spnet_tpu_torch.ops.raster import pair_iou
 
 #: COCO-style IoU thresholds (reference `diagnostics.py:155`).
 MAP_THRESHOLDS = tuple(np.arange(0.50, 0.951, 0.05).round(2))

@@ -1,4 +1,4 @@
-"""Shared building blocks, NHWC, eval mode.
+"""Shared building blocks, NHWC, in eval and train mode.
 
 Counterpart of `spnet_tpu/models/layers.py`.  Activations stay NHWC, the
 JAX layout and the sepconv kernel's.  Parameters are float32; a layer
@@ -7,8 +7,10 @@ casts its weights to the activations' dtype at use, as flax does with
 flax scope names (`conv`, `bn`, `depthwise`, `pointwise`), so converting a
 flax checkpoint is a per-leaf transform (`spnet_tpu_torch/convert.py`).
 
-Only inference is ported so far: a layer in train mode raises
-`NotImplementedError`.
+In train mode BatchNorm normalizes with the batch statistics and updates
+its running statistics as flax does, and a separable conv runs its plain
+composition through autograd; in eval mode the separable conv is one
+`sepconv_infer` call (the fused kernel on the card).
 """
 
 from __future__ import annotations
@@ -25,7 +27,8 @@ from spnet_tpu_torch.ops.sepconv import (
     sepconv_infer_torch,
 )
 
-BN_EPS = 1e-3  # Keras BatchNorm epsilon, as the JAX model uses
+BN_EPS = 1e-3  # Keras BatchNorm epsilon and momentum, as the JAX model uses
+BN_MOMENTUM = 0.99
 
 
 def glorot_uniform_(w: torch.Tensor, fan_in: int, fan_out: int,
@@ -36,13 +39,6 @@ def glorot_uniform_(w: torch.Tensor, fan_in: int, fan_out: int,
     limit = math.sqrt(6.0 / (fan_in + fan_out))
     with torch.no_grad():
         return w.uniform_(-limit, limit, generator=generator)
-
-
-def _train_unsupported(module: nn.Module):
-    if module.training:
-        raise NotImplementedError(
-            f"{type(module).__name__}: train mode is not ported yet; "
-            "call .eval()")
 
 
 class Kernel(nn.Module):
@@ -59,9 +55,15 @@ class Kernel(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """Inference BatchNorm over the last (channel) axis: flax `scale`,
-    `bias`, `mean`, `var` become `weight`, `bias`, `running_mean`,
-    `running_var`."""
+    """BatchNorm over the last (channel) axis: flax `scale`, `bias`,
+    `mean`, `var` become `weight`, `bias`, `running_mean`, `running_var`.
+
+    Train mode follows flax 0.12's `nn.BatchNorm(momentum=0.99,
+    epsilon=1e-3)`: statistics reduced in float32, the fast variance
+    E[x^2] - E[x]^2 clamped at 0, normalization with that biased
+    variance, and running statistics r = 0.99 r + 0.01 batch, also with
+    the biased variance (`F.batch_norm` would update with the unbiased
+    one)."""
 
     def __init__(self, features: int, eps: float = BN_EPS):
         super().__init__()
@@ -84,11 +86,22 @@ class BatchNorm(nn.Module):
                        self.running_var, self.eps)
 
     def forward(self, x):
-        _train_unsupported(self)
+        xf = x.float()
+        if self.training:
+            dims = tuple(range(x.dim() - 1))
+            mean = xf.mean(dims)
+            var = torch.clamp_min(torch.square(xf).mean(dims)
+                                  - torch.square(mean), 0.0)
+            with torch.no_grad():
+                m = BN_MOMENTUM
+                self.running_mean.copy_(m * self.running_mean
+                                        + (1 - m) * mean)
+                self.running_var.copy_(m * self.running_var + (1 - m) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
         # flax's order: (x - mean) * (rsqrt(var + eps) * scale) + bias
-        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
-        y = (x.float() - self.running_mean) * mul + self.bias
-        return y.to(x.dtype)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return ((xf - mean) * mul + self.bias).to(x.dtype)
 
 
 def _same_pads(n: int, k: int, s: int) -> tuple[int, int]:
@@ -165,7 +178,9 @@ class SeparableConvBN(nn.Module):
     In eval mode the BN running stats fold into f32 scale and bias and the
     whole layer is one `sepconv_infer` call: the fused kernel on the card,
     its plain version on the CPU.  `plain=True` calls the plain version on
-    any device; it exists so that tests can hold the kernel against it."""
+    any device; it exists so that tests can hold the kernel against it.
+    In train mode the layer runs its plain composition (`_train_forward`)
+    on every device."""
 
     def __init__(self, in_ch: int, features: int, relu: bool = False,
                  plain: bool = False):
@@ -179,12 +194,45 @@ class SeparableConvBN(nn.Module):
         self.relu, self.plain = relu, plain
 
     def forward(self, x):
-        _train_unsupported(self)
+        if self.training:
+            return self._train_forward(x)
         scale, bias = self.bn.folded()
         fn = sepconv_infer_torch if self.plain else sepconv_infer
         return fn(x.contiguous(), self.depthwise.weight,
                   self.pointwise.weight.to(x.dtype), scale, bias,
                   relu=self.relu)
+
+    def _train_forward(self, x):
+        """Depthwise conv (cuDNN on the card) -> pointwise matmul ->
+        batch-stat BN (-> ReLU) in x's type, through autograd: the JAX
+        train path's composition (the fused kernel is inference-only)."""
+        k = self.depthwise.weight.to(x.dtype).permute(2, 0, 1).unsqueeze(1)
+        y = F.conv2d(x.permute(0, 3, 1, 2), k, padding=1, groups=x.shape[-1])
+        z = self.bn(torch.matmul(y.permute(0, 2, 3, 1),
+                                 self.pointwise.weight.to(x.dtype)))
+        return F.relu(z) if self.relu else z
+
+
+class Dropout(nn.Module):
+    """flax `nn.Dropout`: in train mode each value is kept with
+    probability 1 - rate and scaled by 1 / (1 - rate), else zeroed.  The
+    mask is drawn from an explicit `torch.Generator` on x's device
+    (`F.dropout` takes none).  The identity in eval mode or at rate 0."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x, generator: torch.Generator | None = None):
+        if not self.training or self.rate == 0.0:
+            return x
+        if generator is None:
+            raise ValueError("train-mode dropout needs a torch.Generator on "
+                             f"{x.device}")
+        keep_prob = 1.0 - self.rate
+        keep = torch.rand(x.shape, generator=generator,
+                          device=x.device) < keep_prob
+        return torch.where(keep, x / keep_prob, torch.zeros_like(x))
 
 
 def init_keras_(model: nn.Module, generator: torch.Generator | None = None):

@@ -6,7 +6,8 @@ Counterpart of `spnet_tpu/models/spnet.py` on its default path:
     -> Conv(3ch, 3x3 SAME) 'colorizer' -> AvgPool 2x2
     -> [BN -> LeakyReLU(0.1) -> Conv(3ch)] x2 -> BN
     -> + AvgPool(input)  (residual, broadcast 1 -> 3 channels)
-    -> Dropout(0.1)      (identity in eval)
+    -> Dropout(0.1)      (identity in eval; in train mode its mask comes
+                          from the generator passed to forward)
     -> Xception
     -> NHWC flatten -> float32 Dense(num_outputs) 'final_output'
 
@@ -19,9 +20,9 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from spnet_tpu.config import ORIG_IMG_HEIGHT, ORIG_IMG_WIDTH, ModelConfig
 from spnet_tpu_torch.models.layers import (
     BatchNorm,
+    Dropout,
     Kernel,
     avg_pool2_nhwc,
     conv2d_nhwc,
@@ -29,6 +30,8 @@ from spnet_tpu_torch.models.layers import (
     leaky_relu_01,
 )
 from spnet_tpu_torch.models.xception import Xception
+from spnet_tpu_torch.shared import ORIG_IMG_HEIGHT, ORIG_IMG_WIDTH, \
+    ModelConfig
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -78,19 +81,26 @@ class SPNet(nn.Module):
         self.dtype = dtype
         self.backbone_dtype = backbone_dtype or dtype
         self.stem = Stem()
-        self.stem_dropout = nn.Dropout(dropout_rate)
+        self.stem_dropout = Dropout(dropout_rate)
         self.backbone = Xception(in_ch=3, plain=plain_sepconv)
         fh, fw = Xception.output_hw(input_hw[0] // 2, input_hw[1] // 2)
         self.final_output = nn.Linear(fh * fw * Xception.FEATURES,
                                       num_outputs)
 
-    def forward(self, x):
+    def forward(self, x, dropout_generator: torch.Generator | None = None):
+        """x (B, H, W, 1) -> (B, num_outputs) float32.  In train mode with
+        a dropout rate above 0, `dropout_generator` (on x's device) draws
+        the dropout mask."""
         x = self.stem(x.to(self.dtype))
-        x = self.stem_dropout(x)
+        x = self.stem_dropout(x, dropout_generator)
         x = self.backbone(x.to(self.backbone_dtype))
         # NHWC flatten (models/spnet.py:349 in JAX), float32 head
         x = x.reshape(x.shape[0], -1).float()
         return self.final_output(x)
+
+    def backbone_layer_order(self) -> list[str]:
+        """The backbone's top-level blocks in order (freeze masks)."""
+        return list(Xception.LAYER_ORDER)
 
 
 def build_model(cfg: ModelConfig, num_outputs: int = 576,
@@ -98,7 +108,8 @@ def build_model(cfg: ModelConfig, num_outputs: int = 576,
                 generator: torch.Generator | None = None,
                 plain_sepconv: bool = False) -> SPNet:
     """SPNet for `cfg`, Keras-initialized from `generator` (seed 0 when
-    None), on `device`, in eval mode."""
+    None), on `device`, in eval mode (a train step switches modes
+    itself)."""
     unported = {
         "backbone": cfg.backbone != "Xception",
         "compound_head": getattr(cfg, "compound_head", False),

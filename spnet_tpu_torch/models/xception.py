@@ -1,9 +1,11 @@
-"""Xception backbone (Chollet 2017, arXiv:1610.02357), NHWC, eval mode.
+"""Xception backbone (Chollet 2017, arXiv:1610.02357), NHWC.
 
 Counterpart of `spnet_tpu/models/xception.py`: entry flow (2 VALID convs
 + 3 downsampling separable blocks), middle flow (8 residual blocks at 728
 channels), exit flow (downsampling block + 1536/2048 separable convs).
-All 34 separable convs run through `ops/sepconv.py::sepconv_infer`.
+In eval mode all 34 separable convs run through
+`ops/sepconv.py::sepconv_infer`; in train mode through their plain
+composition (`SeparableConvBN._train_forward`).
 """
 
 from __future__ import annotations

@@ -1,10 +1,11 @@
 """Build and load the port's CUDA kernels.
 
 The sources under `spnet_tpu_torch/csrc/` are compiled with `nvcc` into
-one shared library with a plain C interface, loaded with `ctypes`.  The
-build happens at first use, into `spnet_tpu_torch/_build/` (git-ignored),
-and again whenever the sources or the flags change: the library's file
-name carries their hash.  Nothing here runs at import time, so the module
+one shared library with a plain C interface, loaded with `ctypes`: one
+`nvcc -c` per source, all started together, then one link.  The build
+happens at first use, into `spnet_tpu_torch/_build/` (git-ignored), and
+again whenever the sources or the flags change: the library's file name
+carries their hash.  Nothing here runs at import time, so the module
 imports on hosts without `nvcc` or a card.
 """
 
@@ -23,10 +24,10 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("sepconv.cu",)
+SOURCES = ("sepconv.cu", "loss.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 )
 
 
@@ -57,20 +58,26 @@ def build() -> tuple[Path, float]:
     if path.exists():
         return path, 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *(str(CSRC / name) for name in SOURCES)]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, path)
-    return path, seconds
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
+        objs = [os.path.join(work, f"{Path(name).stem}.o")
+                for name in SOURCES]
+        tmp = os.path.join(work, "lib.so")
+        compiles = [[nvcc, *NVCC_FLAGS, "-c", str(CSRC / name), "-o", obj]
+                    for name, obj in zip(SOURCES, objs)]
+        link = [[nvcc, *NVCC_FLAGS, "-shared", *objs, "-o", tmp]]
+        for stage in (compiles, link):
+            procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True)
+                     for cmd in stage]
+            logs = [p.communicate()[0] for p in procs]
+            failed = [f"{' '.join(cmd)}\n{log}" for cmd, p, log
+                      in zip(stage, procs, logs) if p.returncode]
+            if failed:
+                raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        os.replace(tmp, path)
+    return path, time.perf_counter() - t0
 
 
 @functools.lru_cache(maxsize=None)
@@ -82,4 +89,12 @@ def load_library() -> ctypes.CDLL:
     lib.spnet_sepconv_infer.argtypes = [p, p, p, p, p, p,
                                         i, i, i, i, i, i, i, p]
     lib.spnet_sepconv_infer.restype = i
+    ll, f = ctypes.c_longlong, ctypes.c_float
+    lib.spnet_loss_fwd_partials.argtypes = [ll]
+    lib.spnet_loss_fwd_partials.restype = i
+    lib.spnet_loss_fwd.argtypes = [p, p, p, i, p, ll, f, f, f, f, f, f,
+                                   i, p]
+    lib.spnet_loss_fwd.restype = i
+    lib.spnet_loss_bwd.argtypes = [p, p, p, p, ll, f, f, f, f, f, f, i, p]
+    lib.spnet_loss_bwd.restype = i
     return lib

@@ -1,7 +1,7 @@
 """Port of the model (`spnet_tpu_torch/models`, `convert.py`) against the
 JAX package: full-width SPNet Xception with converted weights, the stem,
 the SAME max-pool, the head's flatten order, the Keras initializer's fans,
-and what `build_model` refuses."""
+train-mode dropout and separable convs, and what `build_model` refuses."""
 
 import jax
 import jax.numpy as jnp
@@ -13,7 +13,8 @@ from flax import linen as nn
 from spnet_tpu.config import ModelConfig
 from spnet_tpu.models.spnet import Stem as JStem, build_model as jbuild
 from spnet_tpu_torch.convert import flax_to_state_dict
-from spnet_tpu_torch.models.layers import SeparableConvBN, max_pool_same
+from spnet_tpu_torch.models.layers import Dropout, SeparableConvBN, \
+    init_keras_, max_pool_same
 from spnet_tpu_torch.models.spnet import SPNet, Stem, build_model
 
 torch.set_num_threads(2)
@@ -162,10 +163,47 @@ def test_build_model_refuses_unported_options(field, value):
         build_model(ModelConfig(input_size=96, **{field: value}))
 
 
-def test_train_mode_is_not_ported():
-    layer = SeparableConvBN(8, 8).train()
-    with pytest.raises(NotImplementedError):
-        layer(torch.zeros(1, 4, 4, 8))
+def test_train_mode_dropout_draws_from_the_generator():
+    """flax Dropout in train mode: kept values scaled by 1 / (1 - rate),
+    the rest zero, the mask from the generator passed in (the same seed,
+    the same mask; none at all is an error); the identity in eval mode."""
+    drop = Dropout(0.25).train()
+    x = torch.rand(4, 16, 16, 3) + 0.5
+    with pytest.raises(ValueError, match="Generator"):
+        drop(x)
+    a = drop(x, torch.Generator().manual_seed(1))
+    b = drop(x, torch.Generator().manual_seed(1))
+    assert torch.equal(a, b)
+    kept = a != 0
+    torch.testing.assert_close(a[kept], x[kept] / 0.75)
+    assert abs(1 - kept.float().mean().item() - 0.25) < 0.03
+    assert torch.equal(drop.eval()(x), x)
+    model = SPNet(input_hw=(64, 64), dtype=torch.float32)
+    assert model.stem_dropout.rate == 0.1
+    assert model.backbone_layer_order()[:2] == ["conv1", "conv2"]
+
+
+def test_separable_conv_train_mode_composition():
+    """Train mode runs depthwise -> pointwise -> batch-stat BN -> ReLU
+    through autograd and gives gradients to both kernels; eval mode after
+    it uses the updated running statistics."""
+    layer = init_keras_(SeparableConvBN(8, 8, relu=True),
+                        torch.Generator().manual_seed(1)).train()
+    x = torch.randn(2, 5, 5, 8, generator=torch.Generator().manual_seed(0))
+    y = layer(x)
+    assert (y >= 0).all()
+    # batch statistics: the pre-ReLU output is normalized per channel
+    z = layer.bn(torch.matmul(torch.nn.functional.conv2d(
+        x.permute(0, 3, 1, 2),
+        layer.depthwise.weight.permute(2, 0, 1).unsqueeze(1), padding=1,
+        groups=8).permute(0, 2, 3, 1), layer.pointwise.weight))
+    torch.testing.assert_close(y, torch.relu(z))
+    y.sum().backward()
+    assert layer.depthwise.weight.grad.abs().sum() > 0
+    assert layer.pointwise.weight.grad.abs().sum() > 0
+    assert not torch.equal(layer.bn.running_var, torch.ones(8))
+    with torch.no_grad():
+        layer.eval()(x)
 
 
 def test_convert_reports_leftover_and_missing_leaves():

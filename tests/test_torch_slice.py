@@ -3,6 +3,7 @@ against the JAX package on the same seeded uint8 frames and converted
 weights; the `python -m spnet_tpu_torch predict` CLI on PNG frames; and
 the rule that the port never imports jax."""
 
+import ast
 import os
 import subprocess
 import sys
@@ -192,6 +193,11 @@ def test_port_never_imports_jax():
         "'spnet_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
+        "train = ['spnet_tpu_torch.' + m for m in ('train.loop', "
+        "'train.steps', 'train.state', 'train.optim', 'train.schedule', "
+        "'ops.losses', 'ops.augment', 'cli.train', 'io.checkpoint')]\n"
+        "missing = [m for m in train if m not in sys.modules]\n"
+        "assert not missing, missing\n"
         "bad = [m for m in ('jax', 'jaxlib', 'flax', 'optax', 'orbax') "
         "if m in sys.modules]\n"
         "assert not bad, bad\n"
@@ -202,4 +208,31 @@ def test_port_never_imports_jax():
                           env=dict(os.environ, PYTHONPATH=ROOT),
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 20  # the whole slice imported
+    assert int(proc.stdout.split()[-1]) >= 27  # both slices imported
+
+
+def _imported_modules(path):
+    """Every module an `import` / `from ... import` in the file names."""
+    tree = ast.parse(open(path).read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize("where", ["spnet_tpu_torch", "chip_smoke.py"])
+def test_only_shared_names_the_jax_package(where):
+    """The port reaches the JAX package's numpy layer only through
+    `spnet_tpu_torch/shared.py`; no other module of the port, and not
+    `chip_smoke.py`, names `spnet_tpu`."""
+    top = os.path.join(ROOT, where)
+    files = [top] if top.endswith(".py") else [
+        os.path.join(d, f) for d, _, fs in os.walk(top) for f in fs
+        if f.endswith(".py")]
+    assert files
+    bad = {os.path.relpath(f, ROOT): m for f in files
+           if os.path.basename(f) != "shared.py"
+           for m in _imported_modules(f)
+           if m == "spnet_tpu" or m.startswith("spnet_tpu.")}
+    assert not bad, bad
