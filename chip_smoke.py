@@ -38,11 +38,27 @@ check raises and the run exits non-zero:
                augmentation, no dropout, lr 1e-4) must lower the loss, and
                one float32 train step with the kernel loss must agree with
                the same step on the plain twin (loss rel 1e-6, head-weight
-               gradient rel 1e-5).
+               gradient rel 1e-5);
+  7. heads   - the selective-sigmoid kernel K4 (forward and backward)
+               against its plain twins at B = 16, 128, 256 x M = 576 and two
+               ragged shapes (rel 1e-6, median time of each); the 'ss' head
+               (Xception-331 bf16 + K4) served from a port checkpoint whose
+               `experiment.json` selects it: 64 frames at b=16, K4 launches
+               = batches + warm-up, K1 34 per batch, noobj lanes in (0, 1),
+               and the f32 model with the kernels against the plain versions
+               (rel 1e-4); the 'ss' head trained through `train_network`
+               (b=128, 2 epochs of 4 steps; K4's backward, K2 and K3 launch
+               once per step) and one f32 train step with K4 against the
+               twin (loss rel 1e-6, head-weight gradient rel 1e-5); then the
+               compound head (Xception-331) and MobileNet-331, bf16, each
+               served (b=16) and trained (b=128, 2 epochs) the same way,
+               with their frames/s and train images/s.
 
-The line before the last is the kernels' JSON record; the last line is
-`{"ok": true, "device": {...}}`.  Exits non-zero without a result when no
-CUDA device is available.  Needs torch and numpy, no jax and no PIL.
+Every model path runs with all five launch counts set to 0 just before it
+and checks them all just after.  The line before the last is the kernels'
+JSON record; the last line is `{"ok": true, "device": {...}}`.  Exits
+non-zero without a result when no CUDA device is available.  Needs torch
+and numpy, no jax and no PIL.
 """
 
 from __future__ import annotations
@@ -87,6 +103,7 @@ VAL_BATCH = 256
 # (B, M) of the loss kernels: the train batch and its neighbours, and two
 # shapes that leave a ragged last block of 256 slots
 LOSS_SHAPES = [(16, 576), (128, 576), (256, 576), (3, 8 * 37), (5, 8 * 250)]
+SIGMOID_RTOL = 1e-6  # K4 vs twin: the same float32 formula, expf vs exp
 TRAIN_BATCH, TRAIN_FRAMES, VAL_FRAMES = 128, 512, 256
 DEVICE = "cuda"
 
@@ -209,19 +226,57 @@ def _seeded_dataset(n: int, size: int, grid, seed: int):
     return x, y
 
 
-def phase_slice(seed: int, smi: str) -> int:
+def _wrappers() -> dict:
+    """Every kernel wrapper of the port, by name; each counts its launches
+    in `.launches`."""
+    from spnet_tpu_torch.ops.activations import selective_sigmoid_bwd, \
+        selective_sigmoid_fwd
+    from spnet_tpu_torch.ops.losses import spnet_loss_bwd, spnet_loss_fwd
+    from spnet_tpu_torch.ops.sepconv import sepconv_infer
+
+    return {f.__name__: f for f in (
+        sepconv_infer, spnet_loss_fwd, spnet_loss_bwd,
+        selective_sigmoid_fwd, selective_sigmoid_bwd)}
+
+
+def _zero_counts():
+    for f in _wrappers().values():
+        f.launches = 0
+
+
+def _counts() -> dict:
+    return {name: f.launches for name, f in _wrappers().items()}
+
+
+def _want_counts(model_cfg, predict_batches=0, train_steps=0) -> dict:
+    """Launches of each kernel for `predict_batches` eval-mode batches and
+    `train_steps` train steps of a model of `model_cfg`: K1 carries
+    Xception's 34 separable convs in eval mode only, K2/K3 the train loss,
+    K4 the 'ss' head in both modes (its backward in train steps)."""
+    sep = SEPCONVS_PER_BATCH if model_cfg.backbone == "Xception" else 0
+    ss = int(model_cfg.selective_sigmoid)
+    return {"sepconv_infer": sep * predict_batches,
+            "spnet_loss_fwd": train_steps,
+            "spnet_loss_bwd": train_steps,
+            "selective_sigmoid_fwd": ss * (predict_batches + train_steps),
+            "selective_sigmoid_bwd": ss * train_steps}
+
+
+def _serve(cfg, seed: int, smi: str, tag: str, n_frames: int = 64,
+           batch: int = 16):
+    """The serving path of `cfg`: the model (seeded Keras init, seeded BN
+    running statistics) saved as a port checkpoint and reloaded through
+    the CLI's loader, then n_frames seeded uint8 frames through
+    `predict_in_batches` at b=batch, with every launch count set to 0 just
+    before and checked just after.  Returns (cfg, model, x, y, y_pred,
+    counts)."""
     from spnet_tpu_torch.cli.common import load_model_and_state
-    from spnet_tpu_torch.eval.metrics import calc_errors, calc_map
     from spnet_tpu_torch.io.checkpoint import save_checkpoint
     from spnet_tpu_torch.models.layers import BatchNorm
     from spnet_tpu_torch.models.spnet import build_model
-    from spnet_tpu_torch.ops.sepconv import sepconv_infer
-    from spnet_tpu_torch.shared import ExperimentConfig, ModelConfig, \
-        denormalize, show_pred_ellipses
     from spnet_tpu_torch.train.loop import predict_in_batches
     from spnet_tpu_torch.train.steps import make_predict_step
 
-    cfg = ExperimentConfig()  # Xception-331, bf16 compute, f32 params
     gen = torch.Generator().manual_seed(seed)
     model = build_model(cfg.model, num_outputs=cfg.grid.num_outputs,
                         generator=gen)
@@ -231,34 +286,71 @@ def phase_slice(seed: int, smi: str) -> int:
                 m.running_mean.normal_(0.0, 0.1, generator=gen)
                 m.running_var.uniform_(0.5, 1.5, generator=gen)
     n_params = sum(p.numel() for p in model.parameters())
-    print(f"[slice] SPNet Xception-{cfg.model.input_size} "
-          f"{cfg.model.compute_dtype}: {n_params / 1e6:.2f} M params")
-    batch, n_frames = 16, 64
     with tempfile.TemporaryDirectory() as tmp:
         ckpt = os.path.join(tmp, "ckpt")
         save_checkpoint(ckpt, model.state_dict(), cfg, step=0)
-        cfg, model, _ = load_model_and_state(ckpt, "cuda")
-        x, y = _seeded_dataset(n_frames, cfg.model.input_size, cfg.grid,
-                               seed)
-        predict = make_predict_step(model)
+        loaded, model, _ = load_model_and_state(ckpt, DEVICE)
+    if loaded != cfg:
+        fail(f"{tag}: the checkpoint's config came back as {loaded}")
+    print(f"[{tag}] SPNet {cfg.model.backbone}-{cfg.model.input_size} "
+          f"{cfg.model.compute_dtype}, selective_sigmoid "
+          f"{cfg.model.selective_sigmoid}, compound_head "
+          f"{cfg.model.compound_head}: {n_params / 1e6:.2f} M params")
+    x, y = _seeded_dataset(n_frames, cfg.model.input_size, cfg.grid, seed)
+    predict = make_predict_step(model)
+    _zero_counts()
+    y_pred, fps = predict_in_batches(predict, x, batch, DEVICE,
+                                     verbose=False)
+    counts = _counts()
+    want = _want_counts(cfg.model, predict_batches=n_frames // batch + 1)
+    print(f"[{tag}] predict {n_frames} frames at b={batch}: {fps:.1f} "
+          f"frames/s (time to host values)  [{smi}]")
+    print(f"[{tag}] launches in that run (warm-up batch included): "
+          f"{counts}")
+    if counts != want:
+        fail(f"{tag}: launches {counts} != {want}")
+    if y_pred.shape != (n_frames, cfg.grid.num_outputs) or \
+            not np.isfinite(y_pred).all():
+        fail(f"{tag}: predictions of shape {y_pred.shape}, finite "
+             f"{np.isfinite(y_pred).all()}")
+    return model, x, y, y_pred, fps, counts
 
-        sepconv_infer.launches = 0
-        y_pred, fps = predict_in_batches(predict, x, batch, "cuda",
-                                         verbose=False)
-        launches = sepconv_infer.launches
-        want = SEPCONVS_PER_BATCH * (n_frames // batch + 1)  # + warm-up
-        print(f"[slice] predict {n_frames} frames at b={batch}: "
-              f"{fps:.1f} frames/s (time to host values)  [{smi}]")
-        print(f"[slice] sepconv kernel launches in that run: {launches} "
-              f"(want {SEPCONVS_PER_BATCH} x {n_frames // batch + 1} = "
-              f"{want})")
-        if launches != want:
-            fail(f"sepconv launches {launches} != {want}")
-        if y_pred.shape != (n_frames, cfg.grid.num_outputs) or \
-                not np.isfinite(y_pred).all():
-            fail(f"predictions: shape {y_pred.shape}, finite "
-                 f"{np.isfinite(y_pred).all()}")
 
+def _f32_kernels_vs_plain(model_cfg, state: dict, x, tag: str):
+    """The same weights in float32, eval mode, with the kernels and with
+    their plain versions (`plain_kernels`): relative error <=
+    MODEL_F32_RTOL."""
+    import dataclasses
+
+    from spnet_tpu_torch.models.spnet import build_model
+    from spnet_tpu_torch.train.steps import make_predict_step
+
+    f32 = dataclasses.replace(model_cfg, compute_dtype="float32",
+                              backbone_dtype="")
+    outs = []
+    for plain in (False, True):
+        mf = build_model(f32, device=DEVICE, plain_kernels=plain)
+        mf.load_state_dict(state)
+        outs.append(make_predict_step(mf)(
+            torch.from_numpy(x).to(DEVICE)).float())
+        del mf
+    err = (outs[0] - outs[1]).abs().max().item()
+    rel = err / max(outs[1].abs().max().item(), 1e-30)
+    print(f"[{tag}] float32 model, kernels vs plain versions: max_abs_err "
+          f"{err:.3e} (rel {rel:.2e}, tol {MODEL_F32_RTOL})")
+    if not (torch.isfinite(outs[0]).all() and rel <= MODEL_F32_RTOL):
+        fail(f"{tag}: float32 model, kernels vs plain relative error {rel}")
+
+
+def phase_slice(seed: int, smi: str) -> int:
+    from spnet_tpu_torch.eval.metrics import calc_errors, calc_map
+    from spnet_tpu_torch.shared import ExperimentConfig, denormalize, \
+        show_pred_ellipses
+
+    cfg = ExperimentConfig()  # Xception-331, bf16 compute, f32 params
+    model, x, y, y_pred, _, counts = _serve(cfg, seed, smi, "slice")
+    n_frames = len(x)
+    with tempfile.TemporaryDirectory() as tmp:
         yp, yt = denormalize(y_pred, cfg.grid), denormalize(y, cfg.grid)
         st = calc_errors(yp, yt)
         m_ap = calc_map(yp, yt, cfg.grid)
@@ -270,29 +362,12 @@ def phase_slice(seed: int, smi: str) -> int:
                 and os.path.exists(csv)):
             fail(f"metrics: mAP {m_ap}, pix err {st.mean_pix_err}, "
                  f"csv {os.path.exists(csv)}")
-        print(f"[slice] mAP {m_ap:.6f}  mean_pix_err {st.mean_pix_err:.3f}"
-              f"  total_obj {st.total_obj}  ring_acc {st.ring_acc:.3f}  "
-              f"class_acc {st.class_acc:.3f}  (random weights; checks that "
-              "the metrics run)")
-
-        # the same weights in float32, kernel vs plain separable conv
-        state = model.state_dict()
-        f32 = ModelConfig(compute_dtype="float32")
-        outs = []
-        for plain in (False, True):
-            mf = build_model(f32, cfg.grid.num_outputs, device="cuda",
-                             plain_sepconv=plain)
-            mf.load_state_dict(state)
-            outs.append(make_predict_step(mf)(
-                torch.from_numpy(x[:batch]).cuda()).float())
-            del mf
-        err = (outs[0] - outs[1]).abs().max().item()
-        rel = err / max(outs[1].abs().max().item(), 1e-30)
-        print(f"[slice] float32 model, kernel vs plain sepconv: max_abs_err "
-              f"{err:.3e} (rel {rel:.2e}, tol {MODEL_F32_RTOL})")
-        if not (torch.isfinite(outs[0]).all() and rel <= MODEL_F32_RTOL):
-            fail(f"float32 model: kernel vs plain relative error {rel}")
-    return launches
+    print(f"[slice] mAP {m_ap:.6f}  mean_pix_err {st.mean_pix_err:.3f}"
+          f"  total_obj {st.total_obj}  ring_acc {st.ring_acc:.3f}  "
+          f"class_acc {st.class_acc:.3f}  (random weights; checks that "
+          "the metrics run)")
+    _f32_kernels_vs_plain(cfg.model, model.state_dict(), x[:16], "slice")
+    return counts["sepconv_infer"]
 
 
 def _loss_inputs(b, m, gen):
@@ -367,45 +442,40 @@ def _seeded_split(sizes, size: int, grid, seed: int):
     return out
 
 
-def _train_run(cfg, train_ds, val_ds, tmp, smi):
+def _train_run(cfg, train_ds, val_ds, tmp, smi, tag="train"):
     """One `train_network` call with every launch count set to 0 before
     and read after; checks what a run must show."""
     from spnet_tpu_torch.io.checkpoint import load_checkpoint
-    from spnet_tpu_torch.ops.losses import spnet_loss_bwd, spnet_loss_fwd
-    from spnet_tpu_torch.ops.sepconv import sepconv_infer
     from spnet_tpu_torch.train.loop import train_network
 
     log_dir, ckpt = os.path.join(tmp, "log"), os.path.join(tmp, "ckpt")
     tc = cfg.train
     start = (load_checkpoint(ckpt)[0]["step"] if os.path.exists(ckpt)
              else 0) // (len(train_ds.x) // tc.batch_size)
-    sepconv_infer.launches = spnet_loss_fwd.launches = 0
-    spnet_loss_bwd.launches = 0
+    _zero_counts()
     t0 = time.perf_counter()
     state, hist = train_network(cfg, train_ds, val_ds, DEVICE,
                                 log_dir=log_dir, ckpt_dir=ckpt,
                                 render_overlays=False)
     seconds = time.perf_counter() - t0
-    counts = (spnet_loss_fwd.launches, spnet_loss_bwd.launches,
-              sepconv_infer.launches)
+    counts = _counts()
     epochs = tc.epochs - start
     steps = epochs * (len(train_ds.x) // tc.batch_size)
     val_batches = -(-len(val_ds.x) // max(tc.batch_size,
                                           min(VAL_BATCH, len(val_ds.x))))
-    want = (steps, steps, SEPCONVS_PER_BATCH * (val_batches + 1) * epochs)
-    print(f"[train] epochs {start + 1}..{tc.epochs}: {seconds:.1f} s; "
-          f"launches K2 {counts[0]}, K3 {counts[1]}, K1 {counts[2]} (want "
-          f"{want[0]}, {want[1]}, {SEPCONVS_PER_BATCH} x "
-          f"{val_batches + 1} val batches (warm-up included) x {epochs} = "
-          f"{want[2]})")
+    want = _want_counts(cfg.model, predict_batches=(val_batches + 1) * epochs,
+                        train_steps=steps)
+    print(f"[{tag}] epochs {start + 1}..{tc.epochs}: {seconds:.1f} s; "
+          f"{steps} steps, {val_batches} val batch(es) + 1 warm-up per "
+          f"epoch; launches {counts}")
     if counts != want:
-        fail(f"train launches {counts} != {want}")
+        fail(f"{tag}: train launches {counts} != {want}")
     if [h["epoch"] for h in hist] != list(range(start, tc.epochs)):
         fail(f"epochs run {[h['epoch'] for h in hist]}, want "
              f"{list(range(start, tc.epochs))}")
     for h in hist:
         vals = [h["train_loss"], *h["val_comps"].values()]
-        print(f"[train] epoch {h['epoch'] + 1}: loss {h['train_loss']:.6f} "
+        print(f"[{tag}] epoch {h['epoch'] + 1}: loss {h['train_loss']:.6f} "
               f"val {h['val_comps']['total']:.6f}  {h['img_per_sec']:.1f} "
               f"train images/s (b={tc.batch_size}, time to the host value "
               f"of the epoch loss)  val {h['val_fps']:.1f} frames/s  [{smi}]")
@@ -423,6 +493,49 @@ def _train_run(cfg, train_ds, val_ds, tmp, smi):
     return state, hist, counts
 
 
+def _f32_step_agreement(model_cfg, x16, y16, seed: int, tag: str,
+                        swap: str):
+    """One float32 train-mode forward + loss + head-weight gradient from
+    the same weights, dropout mask and batch, twice: with the kernels and
+    with the plain versions of those `swap` names.  swap='loss': the fused
+    loss (K2/K3) against its twin; swap='model': the model's kernels (K4,
+    in train mode) against their plain versions, both with the fused loss.
+    Loss rel <= STEP_LOSS_RTOL, gradient rel <= STEP_GRAD_RTOL."""
+    from spnet_tpu_torch.models.spnet import build_model
+    from spnet_tpu_torch.shared import LossWeights
+    from spnet_tpu_torch.train.steps import _prep_x, forward_loss
+
+    init, res = None, []
+    for plain in (False, True):
+        model = build_model(
+            model_cfg, device=DEVICE,
+            generator=torch.Generator().manual_seed(seed),
+            plain_kernels=plain and swap == "model")
+        if init is None:
+            init = {k: v.clone() for k, v in model.state_dict().items()}
+        model.load_state_dict(init)
+        model.train()
+        loss, _ = forward_loss(
+            model, _prep_x(x16), y16,
+            torch.Generator(device=DEVICE).manual_seed(seed), LossWeights(),
+            model_cfg.loss_type, fused=not (plain and swap == "loss"))
+        head = (model.sigmoid_output if model.compound_head
+                else model.final_output)
+        (gw,) = torch.autograd.grad(loss, head.weight)
+        res.append((float(loss.detach()), gw))
+        del model
+    l_rel = abs(res[0][0] - res[1][0]) / abs(res[1][0])
+    g_rel = ((res[0][1] - res[1][1]).abs().max()
+             / res[1][1].abs().max()).item()
+    print(f"[{tag}] float32 step, {swap} kernels vs plain: loss rel "
+          f"{l_rel:.2e} "
+          f"(tol {STEP_LOSS_RTOL}), head-weight gradient rel {g_rel:.2e} "
+          f"(tol {STEP_GRAD_RTOL})")
+    if not (l_rel <= STEP_LOSS_RTOL and g_rel <= STEP_GRAD_RTOL):
+        fail(f"{tag}: float32 step, loss rel {l_rel}, head gradient rel "
+             f"{g_rel}")
+
+
 def phase_train(seed: int, smi: str) -> dict:
     import dataclasses
 
@@ -431,8 +544,7 @@ def phase_train(seed: int, smi: str) -> dict:
     from spnet_tpu_torch.shared import ExperimentConfig, ModelConfig, \
         TrainConfig
     from spnet_tpu_torch.train.state import create_train_state
-    from spnet_tpu_torch.train.steps import _prep_x, forward_loss, \
-        make_train_step
+    from spnet_tpu_torch.train.steps import make_train_step
 
     cfg = ExperimentConfig(train=TrainConfig(
         batch_size=TRAIN_BATCH, epochs=2, save_every=1, seed=seed))
@@ -483,30 +595,103 @@ def phase_train(seed: int, smi: str) -> dict:
     del state, model, step
 
     # float32 (TF32 off): one step with the kernel loss vs the plain twin
-    f32 = ModelConfig(compute_dtype="float32")
-    model = build_model(f32, device=DEVICE,
-                        generator=torch.Generator().manual_seed(seed))
-    init = {k: v.clone() for k, v in model.state_dict().items()}
-    xb = _prep_x(x16)
-    res = []
-    for fused in (True, False):
-        model.load_state_dict(init)
-        model.train()
-        loss, _ = forward_loss(
-            model, xb, y16, torch.Generator(device=DEVICE).manual_seed(seed),
-            cfg.loss_weights, fused=fused)
-        (gw,) = torch.autograd.grad(loss, model.final_output.weight)
-        res.append((float(loss.detach()), gw))
-    l_rel = abs(res[0][0] - res[1][0]) / abs(res[1][0])
-    g_rel = ((res[0][1] - res[1][1]).abs().max()
-             / res[1][1].abs().max()).item()
-    print(f"[train] float32 step, kernel vs plain loss: loss rel {l_rel:.2e} "
-          f"(tol {STEP_LOSS_RTOL}), head-weight gradient rel {g_rel:.2e} "
-          f"(tol {STEP_GRAD_RTOL})")
-    if not (l_rel <= STEP_LOSS_RTOL and g_rel <= STEP_GRAD_RTOL):
-        fail(f"float32 step: loss rel {l_rel}, head gradient rel {g_rel}")
-    return dict(fwd_launches=counts[0], bwd_launches=counts[1],
-                img_per_sec=img_s)
+    _f32_step_agreement(ModelConfig(compute_dtype="float32"), x16, y16,
+                        seed, "train", swap="loss")
+    return dict(fwd_launches=counts["spnet_loss_fwd"],
+                bwd_launches=counts["spnet_loss_bwd"], img_per_sec=img_s)
+
+
+def phase_k4(seed: int, smi: str) -> dict:
+    """K4's forward and backward against their twins at LOSS_SHAPES (the
+    head outputs of the serving and train batches, and two ragged ones)."""
+    from spnet_tpu_torch.ops.activations import selective_sigmoid_bwd, \
+        selective_sigmoid_fwd, selective_sigmoid_grad_torch, \
+        selective_sigmoid_torch
+
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    res = dict(fwd_err=0.0, bwd_err=0.0)
+    for b, m in LOSS_SHAPES:
+        x = 4 * torch.randn(b, m, device=DEVICE, generator=gen)
+        g = torch.randn(b, m, device=DEVICE, generator=gen)
+        y = selective_sigmoid_fwd(x)
+        dx = selective_sigmoid_bwd(y, g)
+        torch.cuda.synchronize()
+        ref = selective_sigmoid_torch(x)
+        ref_dx = selective_sigmoid_grad_torch(ref, g)
+        f_err = (y - ref).abs().max().item()
+        b_err = (dx - ref_dx).abs().max().item()
+        f_rel = f_err / ref.abs().max().item()
+        b_rel = b_err / ref_dx.abs().max().item()
+        t_f = cuda_median_ms(lambda: selective_sigmoid_fwd(x))
+        t_fp = cuda_median_ms(lambda: selective_sigmoid_torch(x))
+        t_b = cuda_median_ms(lambda: selective_sigmoid_bwd(y, g))
+        t_bp = cuda_median_ms(lambda: selective_sigmoid_grad_torch(y, g))
+        print(f"[k4] B={b} M={m}  fwd max_abs_err {f_err:.3e} (rel "
+              f"{f_rel:.2e}, tol {SIGMOID_RTOL})  bwd max_abs_err "
+              f"{b_err:.3e} (rel {b_rel:.2e}, tol {SIGMOID_RTOL})  fwd "
+              f"kernel {t_f:.4f} ms plain {t_fp:.4f} ms  bwd kernel "
+              f"{t_b:.4f} ms plain {t_bp:.4f} ms  [{smi}]")
+        if not (f_rel <= SIGMOID_RTOL and b_rel <= SIGMOID_RTOL):
+            fail(f"selective sigmoid {(b, m)}: forward rel {f_rel}, "
+                 f"backward rel {b_rel} > {SIGMOID_RTOL}")
+        res["fwd_err"] = max(res["fwd_err"], f_err)
+        res["bwd_err"] = max(res["bwd_err"], b_err)
+        if b == TRAIN_BATCH and m == 576:
+            res.update(fwd_ms=t_f, fwd_plain_ms=t_fp, bwd_ms=t_b,
+                       bwd_plain_ms=t_bp)
+    return res
+
+
+def phase_heads(seed: int, smi: str) -> dict:
+    """The other heads and the MobileNet backbone, served and trained."""
+    import dataclasses
+
+    from spnet_tpu_torch.shared import ExperimentConfig, ModelConfig, \
+        TrainConfig
+
+    train_cfg = TrainConfig(batch_size=TRAIN_BATCH, epochs=2, save_every=1,
+                            seed=seed)
+    configs = {
+        "ss": ModelConfig(selective_sigmoid=True),
+        "compound": ModelConfig(compound_head=True),
+        "mobilenet": ModelConfig(backbone="MobileNet"),
+    }
+    train_ds = val_ds = None
+    out = {}
+    for tag, mc in configs.items():
+        cfg = ExperimentConfig(model=mc, train=train_cfg)
+        model, x, _, y_pred, fps, counts = _serve(cfg, seed, smi, tag)
+        noobj = y_pred[:, 6::8]
+        if mc.selective_sigmoid or mc.compound_head:
+            if not ((noobj > 0) & (noobj < 1)).all():
+                fail(f"{tag}: noobj lanes outside (0, 1): "
+                     f"{noobj.min()}..{noobj.max()}")
+            print(f"[{tag}] noobj lanes in {noobj.min():.4f}..."
+                  f"{noobj.max():.4f}")
+        if mc.selective_sigmoid:
+            _f32_kernels_vs_plain(mc, model.state_dict(), x[:16], tag)
+        del model
+        if train_ds is None:
+            train_ds, val_ds = _seeded_split(
+                (TRAIN_FRAMES, VAL_FRAMES), mc.input_size, cfg.grid, seed)
+        with tempfile.TemporaryDirectory() as tmp:
+            state, hist, train_counts = _train_run(cfg, train_ds, val_ds,
+                                                   tmp, smi, tag)
+            del state
+        torch.cuda.empty_cache()
+        out[tag] = dict(predict_fps=fps, img_per_sec=hist[-1]["img_per_sec"],
+                        predict_counts=counts, train_counts=train_counts)
+        if mc.selective_sigmoid:
+            x16 = torch.from_numpy(train_ds.x[:16]).to(DEVICE)
+            y16 = torch.from_numpy(train_ds.y[:16]).to(DEVICE)
+            _f32_step_agreement(dataclasses.replace(
+                mc, compute_dtype="float32"), x16, y16, seed, tag,
+                swap="model")
+    for tag, r in out.items():
+        print(f"[heads] {tag}: predict {r['predict_fps']:.1f} frames/s at "
+              f"b=16, train {r['img_per_sec']:.1f} images/s at "
+              f"b={TRAIN_BATCH} (epoch 2)  [{smi}]")
+    return out
 
 
 def main(argv=None):
@@ -524,10 +709,13 @@ def main(argv=None):
     launches = phase_slice(args.seed, smi)
     loss = phase_loss(args.seed, smi)
     train = phase_train(args.seed, smi)
+    k4 = phase_k4(args.seed, smi)
+    heads = phase_heads(args.seed, smi)
     print(f"[done] {time.perf_counter() - t0:.1f} s after the device phase; "
           f"train {train['img_per_sec']:.1f} images/s at b={TRAIN_BATCH} "
           f"[{smi}]")
     loss_src = "spnet_tpu_torch/csrc/loss.cu"
+    k4_src = "spnet_tpu_torch/csrc/activations.cu"
     print(json.dumps({"kernels": [{
         "name": "sepconv_infer",
         "route": "cuda",
@@ -555,6 +743,24 @@ def main(argv=None):
         "max_abs_err": loss["bwd_err"],
         "ms": loss["bwd_ms"],
         "plain_ms": loss["bwd_plain_ms"],
+    }, {
+        "name": "selective_sigmoid_fwd",
+        "route": "cuda",
+        "source": k4_src,
+        "replaces": "spnet_tpu/ops/activations.py:36",
+        "launches": heads["ss"]["predict_counts"]["selective_sigmoid_fwd"],
+        "max_abs_err": k4["fwd_err"],
+        "ms": k4["fwd_ms"],
+        "plain_ms": k4["fwd_plain_ms"],
+    }, {
+        "name": "selective_sigmoid_bwd",
+        "route": "cuda",
+        "source": k4_src,
+        "replaces": "spnet_tpu/ops/activations.py:36",
+        "launches": heads["ss"]["train_counts"]["selective_sigmoid_bwd"],
+        "max_abs_err": k4["bwd_err"],
+        "ms": k4["bwd_ms"],
+        "plain_ms": k4["bwd_plain_ms"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -28,12 +28,15 @@ def parse_grid(s: str) -> tuple[int, int, int]:
 
 def add_model_args(p: argparse.ArgumentParser) -> None:
     """The JAX CLI's model flags; `build_model` raises for the choices not
-    ported yet (backbones other than Xception, remat)."""
+    ported yet (InceptionResNetV2, NASNetMobile, DarkNet19, remat).  The
+    selective-sigmoid and compound heads have no flag here either: a
+    checkpoint's `experiment.json` or a `ModelConfig` selects them."""
     p.add_argument("--backbone", default="Xception",
                    choices=["Xception", "MobileNet", "MobileNetTiny",
                             "InceptionResNetV2", "NASNetMobile",
                             "DarkNet19"],
-                   help="CNN backbone (only Xception is ported)")
+                   help="CNN backbone (Xception, MobileNet and "
+                        "MobileNetTiny are ported)")
     p.add_argument("--loss_type", default="same",
                    choices=["same", "hybrid"],
                    help="'same' = MSE existence, 'hybrid' = BCE logits")

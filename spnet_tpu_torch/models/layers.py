@@ -9,8 +9,9 @@ flax checkpoint is a per-leaf transform (`spnet_tpu_torch/convert.py`).
 
 In train mode BatchNorm normalizes with the batch statistics and updates
 its running statistics as flax does, and a separable conv runs its plain
-composition through autograd; in eval mode the separable conv is one
-`sepconv_infer` call (the fused kernel on the card).
+composition through autograd; in eval mode Xception's separable conv is
+one `sepconv_infer` call (the fused kernel on the card), and MobileNet's
+strided, BN-between variant its plain composition.
 """
 
 from __future__ import annotations
@@ -111,22 +112,25 @@ def _same_pads(n: int, k: int, s: int) -> tuple[int, int]:
     return total // 2, total - total // 2
 
 
-def conv2d_nhwc(x, weight, stride: int = 1, padding: str = "SAME"):
+def conv2d_nhwc(x, weight, stride: int = 1, padding: str = "SAME",
+                groups: int = 1):
     """Conv of NHWC `x` with an OIHW kernel, through channels-last views
-    (cuDNN on the card, no copies of x)."""
+    (cuDNN on the card, no copies of x).  SAME pads as TF does: (0, 1) on
+    an even size at stride 2."""
     xc = x.permute(0, 3, 1, 2)
+    w = weight.to(x.dtype)
     if padding == "SAME":
         kh, kw = weight.shape[2:]
         (ht, hb) = _same_pads(x.shape[1], kh, stride)
         (wl, wr) = _same_pads(x.shape[2], kw, stride)
         if ht == hb and wl == wr:
-            y = F.conv2d(xc, weight.to(x.dtype), stride=stride,
-                         padding=(ht, wl))
+            y = F.conv2d(xc, w, stride=stride, padding=(ht, wl),
+                         groups=groups)
         else:
-            y = F.conv2d(F.pad(xc, (wl, wr, ht, hb)), weight.to(x.dtype),
-                         stride=stride)
+            y = F.conv2d(F.pad(xc, (wl, wr, ht, hb)), w, stride=stride,
+                         groups=groups)
     elif padding == "VALID":
-        y = F.conv2d(xc, weight.to(x.dtype), stride=stride)
+        y = F.conv2d(xc, w, stride=stride, groups=groups)
     else:
         raise ValueError(f"padding must be SAME or VALID, got {padding!r}")
     return y.permute(0, 2, 3, 1)
@@ -153,64 +157,85 @@ def leaky_relu_01(x):
     return F.leaky_relu(x, negative_slope=0.1)
 
 
+#: Activations a layer may end with, by name ("" = none).  ReLU6 is the
+#: JAX MobileNet's `min(relu(x), 6)`.
+ACTIVATIONS = {"": lambda x: x, "relu": F.relu, "relu6": F.relu6}
+
+
+def _activation(act: str):
+    if act not in ACTIVATIONS:
+        raise ValueError(f"act must be one of {sorted(ACTIVATIONS)}, got "
+                         f"{act!r}")
+    return ACTIVATIONS[act]
+
+
 class ConvBN(nn.Module):
-    """Conv -> BatchNorm (-> ReLU)."""
+    """Conv -> BatchNorm (-> activation)."""
 
     def __init__(self, in_ch: int, features: int, kernel: int = 3,
-                 stride: int = 1, padding: str = "SAME", relu: bool = False):
+                 stride: int = 1, padding: str = "SAME", act: str = ""):
         super().__init__()
         rf = kernel * kernel
         self.conv = Kernel((features, in_ch, kernel, kernel),
                            fan_in=in_ch * rf, fan_out=features * rf)
         self.bn = BatchNorm(features)
-        self.stride, self.padding, self.relu = stride, padding, relu
+        self.stride, self.padding = stride, padding
+        self.act = _activation(act)
 
     def forward(self, x):
-        x = self.bn(conv2d_nhwc(x, self.conv.weight, self.stride,
-                                self.padding))
-        return F.relu(x) if self.relu else x
+        return self.act(self.bn(conv2d_nhwc(x, self.conv.weight, self.stride,
+                                            self.padding)))
 
 
 class SeparableConvBN(nn.Module):
-    """Depthwise 3x3 SAME -> pointwise 1x1 -> BatchNorm (-> ReLU), the
-    Xception variant (no BN between depthwise and pointwise).
+    """Depthwise 3x3 SAME (stride s) [-> BatchNorm 'bn_dw' -> activation]
+    -> pointwise 1x1 -> BatchNorm (-> activation).
 
-    In eval mode the BN running stats fold into f32 scale and bias and the
-    whole layer is one `sepconv_infer` call: the fused kernel on the card,
-    its plain version on the CPU.  `plain=True` calls the plain version on
-    any device; it exists so that tests can hold the kernel against it.
-    In train mode the layer runs its plain composition (`_train_forward`)
-    on every device."""
+    Xception's variant (stride 1, no BN between, ReLU or none) runs in eval
+    mode as one `sepconv_infer` call, with the BN running stats folded into
+    f32 scale and bias: the fused kernel on the card, its plain version on
+    the CPU.  `plain=True` calls the plain version on any device; it exists
+    so that tests can hold the kernel against it.  Every other variant
+    (MobileNet's strided blocks with `bn_between` and ReLU6), and every
+    variant in train mode, runs the plain composition (`_plain_forward`)."""
 
-    def __init__(self, in_ch: int, features: int, relu: bool = False,
+    def __init__(self, in_ch: int, features: int, stride: int = 1,
+                 act: str = "", bn_between: bool = False,
                  plain: bool = False):
         super().__init__()
         # flax kernels (3, 3, 1, C) and (1, 1, C, F), stored as (3, 3, C)
         # and (C, F): the layouts the kernel takes
         self.depthwise = Kernel((3, 3, in_ch), fan_in=9, fan_out=9 * in_ch)
+        if bn_between:
+            self.bn_dw = BatchNorm(in_ch)
         self.pointwise = Kernel((in_ch, features), fan_in=in_ch,
                                 fan_out=features)
         self.bn = BatchNorm(features)
-        self.relu, self.plain = relu, plain
+        self.stride, self.bn_between, self.plain = stride, bn_between, plain
+        self.act = _activation(act)
+        self.fused = stride == 1 and not bn_between and act in ("", "relu")
+        self.relu = act == "relu"
 
     def forward(self, x):
-        if self.training:
-            return self._train_forward(x)
+        if self.training or not self.fused:
+            return self._plain_forward(x)
         scale, bias = self.bn.folded()
         fn = sepconv_infer_torch if self.plain else sepconv_infer
         return fn(x.contiguous(), self.depthwise.weight,
                   self.pointwise.weight.to(x.dtype), scale, bias,
                   relu=self.relu)
 
-    def _train_forward(self, x):
-        """Depthwise conv (cuDNN on the card) -> pointwise matmul ->
-        batch-stat BN (-> ReLU) in x's type, through autograd: the JAX
-        train path's composition (the fused kernel is inference-only)."""
-        k = self.depthwise.weight.to(x.dtype).permute(2, 0, 1).unsqueeze(1)
-        y = F.conv2d(x.permute(0, 3, 1, 2), k, padding=1, groups=x.shape[-1])
-        z = self.bn(torch.matmul(y.permute(0, 2, 3, 1),
-                                 self.pointwise.weight.to(x.dtype)))
-        return F.relu(z) if self.relu else z
+    def _plain_forward(self, x):
+        """Depthwise conv with TF SAME pads (cuDNN on the card) [-> BN ->
+        activation] -> pointwise matmul -> BN (-> activation) in x's type,
+        through autograd; the BNs use batch statistics in train mode and
+        the running ones in eval mode.  The JAX package's composition."""
+        k = self.depthwise.weight.permute(2, 0, 1).unsqueeze(1)  # (C,1,3,3)
+        y = conv2d_nhwc(x, k, self.stride, "SAME", groups=x.shape[-1])
+        if self.bn_between:
+            y = self.act(self.bn_dw(y))
+        z = self.bn(torch.matmul(y, self.pointwise.weight.to(x.dtype)))
+        return self.act(z)
 
 
 class Dropout(nn.Module):

@@ -1,6 +1,6 @@
-"""SPNet assembly: colorizer stem -> Xception -> dense grid head.
+"""SPNet assembly: colorizer stem -> backbone -> dense grid head.
 
-Counterpart of `spnet_tpu/models/spnet.py` on its default path:
+Counterpart of `spnet_tpu/models/spnet.py`:
 
   grayscale (B, S, S, 1)
     -> Conv(3ch, 3x3 SAME) 'colorizer' -> AvgPool 2x2
@@ -8,11 +8,20 @@ Counterpart of `spnet_tpu/models/spnet.py` on its default path:
     -> + AvgPool(input)  (residual, broadcast 1 -> 3 channels)
     -> Dropout(0.1)      (identity in eval; in train mode its mask comes
                           from the generator passed to forward)
-    -> Xception
-    -> NHWC flatten -> float32 Dense(num_outputs) 'final_output'
+    -> Xception | MobileNet | MobileNetTiny
+    -> NHWC flatten -> float32 head:
+         default        Dense(num_outputs) 'final_output'
+         compound_head  Dense(S) 'sigmoid_output' -> sigmoid, and
+                        Dense(num_outputs - S) 'dense_output', interleaved
+                        so that slot k's noobj lane holds sigmoid k
+                        (reference model_type 'compound')
+    [-> selective sigmoid on every noobj lane]  (reference model_type 'ss';
+         kernel K4, `ops/activations.py::SelectiveSigmoid`)
 
-The flatten is NHWC, as in JAX, so a converted 51200-row head kernel needs
-no permutation.  `build_model` raises for what is not ported yet.
+The flatten is NHWC, as in JAX, so a converted head kernel needs no
+permutation, and the compound interleave is JAX's, so neither does the
+split head.  With both heads set, the noobj lanes go through two sigmoids,
+as in JAX.  `build_model` raises for what is not ported yet.
 """
 
 from __future__ import annotations
@@ -29,10 +38,19 @@ from spnet_tpu_torch.models.layers import (
     init_keras_,
     leaky_relu_01,
 )
+from spnet_tpu_torch.models.mobilenet import MobileNet
 from spnet_tpu_torch.models.xception import Xception
-from spnet_tpu_torch.shared import ORIG_IMG_HEIGHT, ORIG_IMG_WIDTH, \
-    ModelConfig
+from spnet_tpu_torch.ops.activations import SelectiveSigmoid, \
+    selective_sigmoid_torch
+from spnet_tpu_torch.shared import IND_NOOBJ, ORIG_IMG_HEIGHT, \
+    ORIG_IMG_WIDTH, VARS_PER_PRED, ModelConfig
 
+#: The ported backbones, each a constructor of (plain_kernels) -> module.
+BACKBONES = {
+    "Xception": lambda plain: Xception(in_ch=3, plain=plain),
+    "MobileNet": lambda plain: MobileNet(in_ch=3, width_mult=1.0),
+    "MobileNetTiny": lambda plain: MobileNet(in_ch=3, width_mult=0.125),
+}
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
@@ -64,28 +82,40 @@ class Stem(nn.Module):
 
 
 class SPNet(nn.Module):
-    """Stem + Xception + flat float32 grid head.
+    """Stem + backbone + flat float32 grid head.
 
     input_hw fixes the head's width (flax infers it at init).  dtype is
     the stem's compute dtype, backbone_dtype the backbone's (None = dtype);
-    params stay float32.  plain_sepconv routes every separable conv
-    through its plain PyTorch version (tests and the chip check only)."""
+    params stay float32.  plain_kernels routes every separable conv and the
+    selective sigmoid through their plain PyTorch versions (tests and the
+    chip check only)."""
 
     def __init__(self, num_outputs: int = 576,
                  input_hw: tuple[int, int] = (331, 331),
                  dropout_rate: float = 0.1,
                  dtype: torch.dtype = torch.bfloat16,
                  backbone_dtype: torch.dtype | None = None,
-                 plain_sepconv: bool = False):
+                 backbone: str = "Xception",
+                 selective_sigmoid: bool = False,
+                 compound_head: bool = False,
+                 plain_kernels: bool = False):
         super().__init__()
         self.dtype = dtype
         self.backbone_dtype = backbone_dtype or dtype
+        self.selective_sigmoid, self.compound_head = (selective_sigmoid,
+                                                      compound_head)
+        self.plain_kernels = plain_kernels
         self.stem = Stem()
         self.stem_dropout = Dropout(dropout_rate)
-        self.backbone = Xception(in_ch=3, plain=plain_sepconv)
-        fh, fw = Xception.output_hw(input_hw[0] // 2, input_hw[1] // 2)
-        self.final_output = nn.Linear(fh * fw * Xception.FEATURES,
-                                      num_outputs)
+        self.backbone = BACKBONES[backbone](plain_kernels)
+        fh, fw = self.backbone.output_hw(input_hw[0] // 2, input_hw[1] // 2)
+        n_in = fh * fw * self.backbone.FEATURES
+        if compound_head:
+            n_preds = num_outputs // VARS_PER_PRED
+            self.sigmoid_output = nn.Linear(n_in, n_preds)
+            self.dense_output = nn.Linear(n_in, num_outputs - n_preds)
+        else:
+            self.final_output = nn.Linear(n_in, num_outputs)
 
     def forward(self, x, dropout_generator: torch.Generator | None = None):
         """x (B, H, W, 1) -> (B, num_outputs) float32.  In train mode with
@@ -96,24 +126,34 @@ class SPNet(nn.Module):
         x = self.backbone(x.to(self.backbone_dtype))
         # NHWC flatten (models/spnet.py:349 in JAX), float32 head
         x = x.reshape(x.shape[0], -1).float()
-        return self.final_output(x)
+        if self.compound_head:
+            sig = torch.sigmoid(self.sigmoid_output(x))
+            d3 = self.dense_output(x).reshape(x.shape[0], sig.shape[1],
+                                              VARS_PER_PRED - 1)
+            x = torch.cat([d3[..., :IND_NOOBJ], sig[..., None],
+                           d3[..., IND_NOOBJ:]], dim=-1)
+            x = x.reshape(x.shape[0], -1)
+        else:
+            x = self.final_output(x)
+        if self.selective_sigmoid:
+            x = (selective_sigmoid_torch(x) if self.plain_kernels
+                 else SelectiveSigmoid.apply(x))
+        return x
 
     def backbone_layer_order(self) -> list[str]:
         """The backbone's top-level blocks in order (freeze masks)."""
-        return list(Xception.LAYER_ORDER)
+        return list(self.backbone.LAYER_ORDER)
 
 
 def build_model(cfg: ModelConfig, num_outputs: int = 576,
                 device: str | torch.device = "cpu",
                 generator: torch.Generator | None = None,
-                plain_sepconv: bool = False) -> SPNet:
+                plain_kernels: bool = False) -> SPNet:
     """SPNet for `cfg`, Keras-initialized from `generator` (seed 0 when
     None), on `device`, in eval mode (a train step switches modes
     itself)."""
     unported = {
-        "backbone": cfg.backbone != "Xception",
-        "compound_head": getattr(cfg, "compound_head", False),
-        "selective_sigmoid": cfg.selective_sigmoid,
+        "backbone": cfg.backbone not in BACKBONES,
         "stem_planar": cfg.stem_planar,
         "stem_fused": cfg.stem_fused,
         "remat": cfg.remat,
@@ -122,7 +162,8 @@ def build_model(cfg: ModelConfig, num_outputs: int = 576,
     if bad:
         raise NotImplementedError(
             f"not ported to spnet_tpu_torch yet: {bad} (the port has the "
-            "Xception model with the default head and NHWC stem)")
+            f"{', '.join(BACKBONES)} backbones, the default, "
+            "selective-sigmoid and compound heads, and the NHWC stem)")
     size = cfg.input_size
     hw = (size, size) if size else (ORIG_IMG_HEIGHT, ORIG_IMG_WIDTH)
     model = SPNet(
@@ -132,7 +173,10 @@ def build_model(cfg: ModelConfig, num_outputs: int = 576,
         dtype=_DTYPES[cfg.compute_dtype],
         backbone_dtype=(_DTYPES[cfg.backbone_dtype]
                         if getattr(cfg, "backbone_dtype", "") else None),
-        plain_sepconv=plain_sepconv,
+        backbone=cfg.backbone,
+        selective_sigmoid=cfg.selective_sigmoid,
+        compound_head=cfg.compound_head,
+        plain_kernels=plain_kernels,
     )
     if generator is None:
         generator = torch.Generator().manual_seed(0)

@@ -5,7 +5,7 @@ Counterpart of `spnet_tpu/models/xception.py`: entry flow (2 VALID convs
 channels), exit flow (downsampling block + 1536/2048 separable convs).
 In eval mode all 34 separable convs run through
 `ops/sepconv.py::sepconv_infer`; in train mode through their plain
-composition (`SeparableConvBN._train_forward`).
+composition (`SeparableConvBN._plain_forward`).
 """
 
 from __future__ import annotations
@@ -68,8 +68,8 @@ class Xception(nn.Module):
     def __init__(self, in_ch: int = 3, plain: bool = False):
         super().__init__()
         self.conv1 = ConvBN(in_ch, 32, 3, stride=2, padding="VALID",
-                            relu=True)
-        self.conv2 = ConvBN(32, 64, 3, padding="VALID", relu=True)
+                            act="relu")
+        self.conv2 = ConvBN(32, 64, 3, padding="VALID", act="relu")
         self.block2 = _DownBlock(64, 128, first_relu=False, plain=plain)
         self.block3 = _DownBlock(128, 256, plain=plain)
         self.block4 = _DownBlock(256, 728, plain=plain)
@@ -78,8 +78,8 @@ class Xception(nn.Module):
         self.exit_shortcut = ConvBN(728, 1024, 1, stride=2)
         self.exit_sep1 = SeparableConvBN(728, 728, plain=plain)
         self.exit_sep2 = SeparableConvBN(728, 1024, plain=plain)
-        self.exit_sep3 = SeparableConvBN(1024, 1536, relu=True, plain=plain)
-        self.exit_sep4 = SeparableConvBN(1536, 2048, relu=True, plain=plain)
+        self.exit_sep3 = SeparableConvBN(1024, 1536, act="relu", plain=plain)
+        self.exit_sep4 = SeparableConvBN(1536, 2048, act="relu", plain=plain)
 
     @staticmethod
     def output_hw(h: int, w: int) -> tuple[int, int]:

@@ -24,7 +24,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("sepconv.cu", "loss.cu")
+SOURCES = ("sepconv.cu", "loss.cu", "activations.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC",
@@ -97,4 +97,8 @@ def load_library() -> ctypes.CDLL:
     lib.spnet_loss_fwd.restype = i
     lib.spnet_loss_bwd.argtypes = [p, p, p, p, ll, f, f, f, f, f, f, i, p]
     lib.spnet_loss_bwd.restype = i
+    lib.spnet_selective_sigmoid_fwd.argtypes = [p, p, ll, p]
+    lib.spnet_selective_sigmoid_fwd.restype = i
+    lib.spnet_selective_sigmoid_bwd.argtypes = [p, p, p, ll, p]
+    lib.spnet_selective_sigmoid_bwd.restype = i
     return lib

@@ -154,8 +154,8 @@ def test_keras_init_uses_flax_fans():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("backbone", "MobileNet"), ("compound_head", True),
-    ("selective_sigmoid", True), ("stem_planar", True),
+    ("backbone", "InceptionResNetV2"), ("backbone", "NASNetMobile"),
+    ("backbone", "DarkNet19"), ("stem_planar", True),
     ("stem_fused", True), ("remat", True),
 ])
 def test_build_model_refuses_unported_options(field, value):
@@ -187,7 +187,7 @@ def test_separable_conv_train_mode_composition():
     """Train mode runs depthwise -> pointwise -> batch-stat BN -> ReLU
     through autograd and gives gradients to both kernels; eval mode after
     it uses the updated running statistics."""
-    layer = init_keras_(SeparableConvBN(8, 8, relu=True),
+    layer = init_keras_(SeparableConvBN(8, 8, act="relu"),
                         torch.Generator().manual_seed(1)).train()
     x = torch.randn(2, 5, 5, 8, generator=torch.Generator().manual_seed(0))
     y = layer(x)

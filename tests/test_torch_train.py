@@ -104,7 +104,7 @@ def test_train_mode_batchnorm_matches_flax(which):
     if which == "ConvBN":
         jm = JConvBN(16, strides=(2, 2), padding="VALID", act=nn.relu,
                      dtype=jnp.float32)
-        tm = ConvBN(8, 16, 3, stride=2, padding="VALID", relu=True)
+        tm = ConvBN(8, 16, 3, stride=2, padding="VALID", act="relu")
         shape = (3, 13, 11, 8)
     elif which == "SeparableConvBN":
         jm = JSeparableConvBN(24, dtype=jnp.float32)
