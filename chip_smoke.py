@@ -9,18 +9,23 @@ check raises and the run exits non-zero:
                versions; TF32 is switched off for the float32 checks;
   2. build   - compiles the CUDA kernels from `spnet_tpu_torch/csrc`;
   3. kernel  - the fused separable-conv kernel against its plain PyTorch
-               version at the 10 Xception-331 shapes (b=16, ReLU on and off;
-               b=256, the train path's val-sweep batch, ReLU as the model
-               has it) and two ragged shapes, in float32 and bfloat16, with
-               the median time of each (CUDA events);
+               version at the 10 Xception-331 shapes (b=16 with the input
+               and output ReLU as the model has them and flipped; b=256,
+               the train path's val-sweep batch, as the model has them) and
+               two ragged shapes, in float32 and bfloat16, with the median
+               time of each (CUDA events); for bf16 at b=16 and b=256 each
+               shape's bound (bytes and operations from the shapes, which
+               one binds), % of bound, and the time of the unfused library
+               pair (cuDNN depthwise conv + torch.matmul, two calls, no
+               BN/ReLU epilogue: a yardstick the port never calls);
   4. slice   - the serving path at full width: SPNet Xception-331 (bf16,
                seeded Keras init, seeded BN running stats) saved as a port
                checkpoint, reloaded through the CLI's loader, 64 seeded
                uint8 frames through `predict_in_batches` at b=16, then
                denormalize, calc_errors, calc_map and the prediction CSV.
                Checks the kernel's launch count on that run, finite outputs,
-               and float32 agreement of the whole model between the kernel
-               and the plain separable conv;
+               and agreement of the whole model, float32 and bfloat16, between
+               the kernels and their plain versions;
   5. loss    - the fused loss kernels K2 (forward) and K3 (backward) against
                the plain PyTorch twin at B = 16, 128, 256 x M = 576 and two
                ragged shapes, 'same' and 'hybrid', float32: loss rel 1e-5,
@@ -78,22 +83,31 @@ import torch
 F32_RTOL = 1e-4   # kernel vs plain, float32: only the summation order differs
 BF16_RTOL = 2e-2  # bfloat16: the two versions round at different points
 MODEL_F32_RTOL = 1e-4  # whole model, float32, 34 separable convs deep
+# whole model, bfloat16: per sepconv the kernel rounds the depthwise with f32
+# taps, the plain version with bf16 taps (as the JAX twin); 34 layers deep
+# the outputs drift apart by a few bf16 ulps of their scale (measured on an
+# H100: see PERF.md)
+MODEL_BF16_RTOL = 5e-3
+# H100 SXM peaks (NVIDIA's data sheet, 700 W): HBM bytes/s, dense bf16 FLOP/s
+HBM_BYTES_PER_S = 3.35e12
+BF16_FLOPS = 989e12
 LOSS_RTOL = 1e-5       # K2 vs twin, K3 vs twin's gradient (summation order)
 STEP_LOSS_RTOL = 1e-6  # float32 train step, kernel loss vs plain twin
 STEP_GRAD_RTOL = 1e-5  # ... its head-weight gradient
 
-# (B, H, W, C, F, relu, uses per predict batch) on the Xception-331 path
+# (B, H, W, C, F, relu, relu_in, uses per predict batch) on the
+# Xception-331 path
 XCEPTION_SHAPES = [
-    (16, 80, 80, 64, 128, False, 1),
-    (16, 80, 80, 128, 128, False, 1),
-    (16, 40, 40, 128, 256, False, 1),
-    (16, 40, 40, 256, 256, False, 1),
-    (16, 20, 20, 256, 728, False, 1),
-    (16, 20, 20, 728, 728, False, 1),
-    (16, 10, 10, 728, 728, False, 25),
-    (16, 10, 10, 728, 1024, False, 1),
-    (16, 5, 5, 1024, 1536, True, 1),
-    (16, 5, 5, 1536, 2048, True, 1),
+    (16, 80, 80, 64, 128, False, False, 1),
+    (16, 80, 80, 128, 128, False, True, 1),
+    (16, 40, 40, 128, 256, False, True, 1),
+    (16, 40, 40, 256, 256, False, True, 1),
+    (16, 20, 20, 256, 728, False, True, 1),
+    (16, 20, 20, 728, 728, False, True, 1),
+    (16, 10, 10, 728, 728, False, True, 25),
+    (16, 10, 10, 728, 1024, False, True, 1),
+    (16, 5, 5, 1024, 1536, True, False, 1),
+    (16, 5, 5, 1536, 2048, True, False, 1),
 ]
 RAGGED_SHAPES = [(2, 7, 5, 24, 40), (3, 9, 9, 33, 70)]
 SEPCONVS_PER_BATCH = sum(s[-1] for s in XCEPTION_SHAPES)  # 34
@@ -141,12 +155,25 @@ def phase_device() -> str:
 
 
 def phase_build():
+    import re
+
     from spnet_tpu_torch.ops import _build
 
     path, seconds = _build.build()
     _build.load_library()
     print(f"[build] {os.path.relpath(path)}: nvcc {seconds:.2f} s"
           + (" (cached library of the same sources)" if seconds == 0 else ""))
+    # ptxas -v of K1's wgmma kernels: registers, spills (per <NC, TN>)
+    name = None
+    for line in _build.build.log.splitlines():
+        m = re.search(
+            r"Compiling entry function '.*wgmma_kernelILi(\d)ELi(\d+)E", line)
+        if m:
+            name = f"wgmma_kernel<NC={m[1]}, TN={m[2]}>"
+        elif name and ("spill" in line or "Used" in line):
+            print(f"[build] ptxas {name}: {line.split(':', 1)[-1].strip()}")
+            if "Used" in line:
+                name = None
 
 
 def _sepconv_inputs(b, h, w, c, f, dtype, gen):
@@ -159,55 +186,103 @@ def _sepconv_inputs(b, h, w, c, f, dtype, gen):
     return x, dw, pw, scale, bias
 
 
+def sepconv_bound(b, h, w, c, f) -> tuple[float, str]:
+    """(least time in ms, what binds it) of one fused bf16 sepconv on an
+    H100: x read once, out written once, the weights (bf16 pointwise, f32
+    taps, f32 scale and bias) read once; 2 M C F + 18 M C operations
+    (pointwise and depthwise multiply-adds)."""
+    m = b * h * w
+    nbytes = 2 * (m * c + m * f + c * f) + 4 * (9 * c + 2 * f)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = (2 * m * c * f + 18 * m * c) / BF16_FLOPS
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def _library_pair(x, dw, pw):
+    """The unfused yardstick of one sepconv: cuDNN's depthwise conv on the
+    channels-last view of x, then torch.matmul (two calls, no BN/ReLU)."""
+    k = dw.to(x.dtype).permute(2, 0, 1).unsqueeze(1)
+    xc = x.permute(0, 3, 1, 2)  # NCHW view, channels-last strides
+    groups = x.shape[-1]
+
+    def run():
+        y = torch.nn.functional.conv2d(xc, k, padding=1, groups=groups)
+        return torch.matmul(y.permute(0, 2, 3, 1), pw)
+    return run
+
+
 def phase_kernel(seed: int, smi: str) -> dict:
     from spnet_tpu_torch.ops.sepconv import sepconv_infer, \
         sepconv_infer_torch
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    # (shape, relu, uses per bf16 predict batch with that ReLU setting)
-    cases = [(s[:5], relu, s[6] if relu == s[5] else 0)
-             for s in XCEPTION_SHAPES for relu in (False, True)]
-    cases += [((VAL_BATCH, *s[1:5]), s[5], s[6]) for s in XCEPTION_SHAPES]
-    cases += [(s, relu, 0) for s in RAGGED_SHAPES for relu in (False, True)]
+    # (shape, relu, relu_in, uses per bf16 batch with that setting)
+    cases = []
+    for *shape, relu, relu_in, uses in XCEPTION_SHAPES:
+        cases.append((tuple(shape), relu, relu_in, uses))
+        cases.append((tuple(shape), not relu, not relu_in, 0))
+    cases += [((VAL_BATCH, *s[1:5]), s[5], s[6], s[7])
+              for s in XCEPTION_SHAPES]
+    cases += [(s, relu, relu_in, 0) for s in RAGGED_SHAPES
+              for relu in (False, True) for relu_in in (False, True)]
     max_err = 0.0
-    # bf16 time of one batch of 34 sepconvs: kernel, plain; b=16 predict
-    # batch and b=VAL_BATCH val-sweep batch
-    batch_ms = {16: [0.0, 0.0], VAL_BATCH: [0.0, 0.0]}
+    # bf16 sums over one batch of 34 sepconvs (b=16 predict, b=VAL_BATCH
+    # val sweep): kernel, plain, library pair, bound; bound kinds
+    sums = {b: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
+                    bytes_ms=0.0) for b in (16, VAL_BATCH)}
     for dtype, rtol in ((torch.float32, F32_RTOL),
                         (torch.bfloat16, BF16_RTOL)):
-        for (b, h, w, c, f), relu, uses in cases:
+        for (b, h, w, c, f), relu, relu_in, uses in cases:
             args = _sepconv_inputs(b, h, w, c, f, dtype, gen)
-            out = sepconv_infer(*args, relu=relu)
+            kw = dict(relu=relu, relu_in=relu_in)
+            out = sepconv_infer(*args, **kw)
             torch.cuda.synchronize()
-            ref = sepconv_infer_torch(*args, relu=relu)
+            ref = sepconv_infer_torch(*args, **kw)
             err = (out.float() - ref.float()).abs().max().item()
             rel = err / max(ref.float().abs().max().item(), 1e-30)
-            t_k = cuda_median_ms(lambda: sepconv_infer(*args, relu=relu))
-            t_p = cuda_median_ms(
-                lambda: sepconv_infer_torch(*args, relu=relu))
+            t_k = cuda_median_ms(lambda: sepconv_infer(*args, **kw))
+            t_p = cuda_median_ms(lambda: sepconv_infer_torch(*args, **kw))
             name = str(dtype).replace("torch.", "")
-            print(f"[kernel] {name:8s} B={b} {h}x{w} {c}->{f} relu={relu:d}"
-                  f"  max_abs_err {err:.3e} (rel {rel:.2e}, tol {rtol})"
-                  f"  kernel {t_k:.4f} ms  plain {t_p:.4f} ms  [{smi}]")
-            if not (rel <= rtol):
-                fail(f"sepconv {dtype} {(b, h, w, c, f)} relu={relu}: "
-                     f"relative error {rel} > {rtol}")
-            max_err = max(max_err, err)
+            line = (f"[kernel] {name:8s} B={b} {h}x{w} {c}->{f} relu={relu:d}"
+                    f" relu_in={relu_in:d}  max_abs_err {err:.3e} (rel "
+                    f"{rel:.2e}, tol {rtol})  kernel {t_k:.4f} ms  plain "
+                    f"{t_p:.4f} ms")
             if dtype == torch.bfloat16 and uses:
-                batch_ms[b][0] += uses * t_k
-                batch_ms[b][1] += uses * t_p
-    for b, (t_k, t_p) in batch_ms.items():
+                t_l = cuda_median_ms(_library_pair(*args[:3]))
+                bound, kind = sepconv_bound(b, h, w, c, f)
+                line += (f"  library pair {t_l:.4f} ms  bound {bound:.4f} ms"
+                         f" ({kind})  {100 * bound / t_k:.1f}% of bound"
+                         f"  x{uses}")
+                acc = sums[b]
+                acc["ms"] += uses * t_k
+                acc["plain_ms"] += uses * t_p
+                acc["library_ms"] += uses * t_l
+                acc["bound_ms"] += uses * bound
+                acc["bytes_ms"] += uses * bound * (kind == "bytes")
+            print(f"{line}  [{smi}]")
+            if not (rel <= rtol):
+                fail(f"sepconv {dtype} {(b, h, w, c, f)} relu={relu} "
+                     f"relu_in={relu_in}: relative error {rel} > {rtol}")
+            max_err = max(max_err, err)
+    for b, acc in sums.items():
         print(f"[kernel] one bf16 batch of b={b} (34 sepconvs): kernel "
-              f"{t_k:.4f} ms, plain {t_p:.4f} ms  [{smi}]")
-    ms, plain_ms = batch_ms[16]
-    return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms)
+              f"{acc['ms']:.4f} ms, plain {acc['plain_ms']:.4f} ms, library "
+              f"pair {acc['library_ms']:.4f} ms, bound {acc['bound_ms']:.4f} "
+              f"ms ({100 * acc['bound_ms'] / acc['ms']:.1f}% of bound)  "
+              f"[{smi}]")
+    res = dict(sums[16], max_abs_err=max_err)
+    res["bound_by"] = ("bytes" if 2 * res.pop("bytes_ms") >= res["bound_ms"]
+                       else "operations")
+    return res
 
 
 def _seeded_dataset(n: int, size: int, grid, seed: int):
     """n uint8 (size, size, 1) frames and their normalized grid labels,
     from numpy only."""
-    from spnet_tpu_torch.shared import batch_ellipses_to_grid, \
-        canonicalize_records, normalize
+    from spnet_tpu_torch.grid import (
+        batch_ellipses_to_grid, canonicalize_records, normalize,
+    )
 
     rng = np.random.default_rng(seed)
     x = rng.integers(0, 256, (n, size, size, 1), dtype=np.uint8)
@@ -279,7 +354,7 @@ def _serve(cfg, seed: int, smi: str, tag: str, n_frames: int = 64,
 
     gen = torch.Generator().manual_seed(seed)
     model = build_model(cfg.model, num_outputs=cfg.grid.num_outputs,
-                        generator=gen)
+                        device="cpu", generator=gen)
     with torch.no_grad():  # non-trivial running stats: the fold is no identity
         for m in model.modules():
             if isinstance(m, BatchNorm):
@@ -316,36 +391,39 @@ def _serve(cfg, seed: int, smi: str, tag: str, n_frames: int = 64,
     return model, x, y, y_pred, fps, counts
 
 
-def _f32_kernels_vs_plain(model_cfg, state: dict, x, tag: str):
-    """The same weights in float32, eval mode, with the kernels and with
+def _kernels_vs_plain(model_cfg, state: dict, x, tag: str,
+                      dtype: str = "float32"):
+    """The same weights in `dtype`, eval mode, with the kernels and with
     their plain versions (`plain_kernels`): relative error <=
-    MODEL_F32_RTOL."""
+    MODEL_F32_RTOL (float32) or MODEL_BF16_RTOL (bfloat16)."""
     import dataclasses
 
     from spnet_tpu_torch.models.spnet import build_model
     from spnet_tpu_torch.train.steps import make_predict_step
 
-    f32 = dataclasses.replace(model_cfg, compute_dtype="float32",
+    tol = MODEL_F32_RTOL if dtype == "float32" else MODEL_BF16_RTOL
+    cfg = dataclasses.replace(model_cfg, compute_dtype=dtype,
                               backbone_dtype="")
     outs = []
     for plain in (False, True):
-        mf = build_model(f32, device=DEVICE, plain_kernels=plain)
+        mf = build_model(cfg, device=DEVICE, plain_kernels=plain)
         mf.load_state_dict(state)
         outs.append(make_predict_step(mf)(
             torch.from_numpy(x).to(DEVICE)).float())
         del mf
     err = (outs[0] - outs[1]).abs().max().item()
     rel = err / max(outs[1].abs().max().item(), 1e-30)
-    print(f"[{tag}] float32 model, kernels vs plain versions: max_abs_err "
-          f"{err:.3e} (rel {rel:.2e}, tol {MODEL_F32_RTOL})")
-    if not (torch.isfinite(outs[0]).all() and rel <= MODEL_F32_RTOL):
-        fail(f"{tag}: float32 model, kernels vs plain relative error {rel}")
+    print(f"[{tag}] {dtype} model, kernels vs plain versions: max_abs_err "
+          f"{err:.3e} (rel {rel:.2e}, tol {tol})")
+    if not (torch.isfinite(outs[0]).all() and rel <= tol):
+        fail(f"{tag}: {dtype} model, kernels vs plain relative error {rel}")
 
 
 def phase_slice(seed: int, smi: str) -> int:
     from spnet_tpu_torch.eval.metrics import calc_errors, calc_map
-    from spnet_tpu_torch.shared import ExperimentConfig, denormalize, \
-        show_pred_ellipses
+    from spnet_tpu_torch.config import ExperimentConfig
+    from spnet_tpu_torch.grid import denormalize
+    from spnet_tpu_torch.io.render import show_pred_ellipses
 
     cfg = ExperimentConfig()  # Xception-331, bf16 compute, f32 params
     model, x, y, y_pred, _, counts = _serve(cfg, seed, smi, "slice")
@@ -366,7 +444,9 @@ def phase_slice(seed: int, smi: str) -> int:
           f"  total_obj {st.total_obj}  ring_acc {st.ring_acc:.3f}  "
           f"class_acc {st.class_acc:.3f}  (random weights; checks that "
           "the metrics run)")
-    _f32_kernels_vs_plain(cfg.model, model.state_dict(), x[:16], "slice")
+    for dtype in ("float32", "bfloat16"):
+        _kernels_vs_plain(cfg.model, model.state_dict(), x[:16], "slice",
+                          dtype)
     return counts["sepconv_infer"]
 
 
@@ -383,7 +463,7 @@ def _loss_inputs(b, m, gen):
 def phase_loss(seed: int, smi: str) -> dict:
     from spnet_tpu_torch.ops.losses import spnet_loss, spnet_loss_bwd, \
         spnet_loss_fwd
-    from spnet_tpu_torch.shared import LossWeights
+    from spnet_tpu_torch.config import LossWeights
 
     w = LossWeights()
     gen = torch.Generator(device=DEVICE).manual_seed(seed)
@@ -430,7 +510,7 @@ def phase_loss(seed: int, smi: str) -> dict:
 
 def _seeded_split(sizes, size: int, grid, seed: int):
     """Datasets of the given sizes from one seeded `_seeded_dataset`."""
-    from spnet_tpu_torch.shared import Dataset
+    from spnet_tpu_torch.data.dataset import Dataset
 
     x, y = _seeded_dataset(sum(sizes), size, grid, seed)
     out, s0 = [], 0
@@ -502,7 +582,7 @@ def _f32_step_agreement(model_cfg, x16, y16, seed: int, tag: str,
     in train mode) against their plain versions, both with the fused loss.
     Loss rel <= STEP_LOSS_RTOL, gradient rel <= STEP_GRAD_RTOL."""
     from spnet_tpu_torch.models.spnet import build_model
-    from spnet_tpu_torch.shared import LossWeights
+    from spnet_tpu_torch.config import LossWeights
     from spnet_tpu_torch.train.steps import _prep_x, forward_loss
 
     init, res = None, []
@@ -541,8 +621,9 @@ def phase_train(seed: int, smi: str) -> dict:
 
     from spnet_tpu_torch.models.layers import BatchNorm
     from spnet_tpu_torch.models.spnet import build_model
-    from spnet_tpu_torch.shared import ExperimentConfig, ModelConfig, \
-        TrainConfig
+    from spnet_tpu_torch.config import (
+        ExperimentConfig, ModelConfig, TrainConfig,
+    )
     from spnet_tpu_torch.train.state import create_train_state
     from spnet_tpu_torch.train.steps import make_train_step
 
@@ -646,8 +727,9 @@ def phase_heads(seed: int, smi: str) -> dict:
     """The other heads and the MobileNet backbone, served and trained."""
     import dataclasses
 
-    from spnet_tpu_torch.shared import ExperimentConfig, ModelConfig, \
-        TrainConfig
+    from spnet_tpu_torch.config import (
+        ExperimentConfig, ModelConfig, TrainConfig,
+    )
 
     train_cfg = TrainConfig(batch_size=TRAIN_BATCH, epochs=2, save_every=1,
                             seed=seed)
@@ -669,7 +751,7 @@ def phase_heads(seed: int, smi: str) -> dict:
             print(f"[{tag}] noobj lanes in {noobj.min():.4f}..."
                   f"{noobj.max():.4f}")
         if mc.selective_sigmoid:
-            _f32_kernels_vs_plain(mc, model.state_dict(), x[:16], tag)
+            _kernels_vs_plain(mc, model.state_dict(), x[:16], tag)
         del model
         if train_ds is None:
             train_ds, val_ds = _seeded_split(
@@ -716,6 +798,10 @@ def main(argv=None):
           f"[{smi}]")
     loss_src = "spnet_tpu_torch/csrc/loss.cu"
     k4_src = "spnet_tpu_torch/csrc/activations.cu"
+    # K2-K4 at their timed shapes (TRAIN_BATCH x 576 float32): each input
+    # read once, each output written once; their few operations an element
+    # are far below the bytes' time
+    n = TRAIN_BATCH * 576 * 4
     print(json.dumps({"kernels": [{
         "name": "sepconv_infer",
         "route": "cuda",
@@ -725,6 +811,9 @@ def main(argv=None):
         "max_abs_err": kern["max_abs_err"],
         "ms": kern["ms"],
         "plain_ms": kern["plain_ms"],
+        "bound_ms": kern["bound_ms"],
+        "bound_by": kern["bound_by"],
+        "library_ms": kern["library_ms"],
     }, {
         "name": "spnet_loss_fwd",
         "route": "cuda",
@@ -734,6 +823,9 @@ def main(argv=None):
         "max_abs_err": loss["fwd_err"],
         "ms": loss["fwd_ms"],
         "plain_ms": loss["fwd_plain_ms"],
+        "bound_ms": 1e3 * (2 * n + 4) / HBM_BYTES_PER_S,
+        "bound_by": "bytes",
+        "library_ms": None,
     }, {
         "name": "spnet_loss_bwd",
         "route": "cuda",
@@ -743,6 +835,9 @@ def main(argv=None):
         "max_abs_err": loss["bwd_err"],
         "ms": loss["bwd_ms"],
         "plain_ms": loss["bwd_plain_ms"],
+        "bound_ms": 1e3 * (3 * n + 4) / HBM_BYTES_PER_S,
+        "bound_by": "bytes",
+        "library_ms": None,
     }, {
         "name": "selective_sigmoid_fwd",
         "route": "cuda",
@@ -752,6 +847,9 @@ def main(argv=None):
         "max_abs_err": k4["fwd_err"],
         "ms": k4["fwd_ms"],
         "plain_ms": k4["fwd_plain_ms"],
+        "bound_ms": 1e3 * 2 * n / HBM_BYTES_PER_S,
+        "bound_by": "bytes",
+        "library_ms": None,
     }, {
         "name": "selective_sigmoid_bwd",
         "route": "cuda",
@@ -761,6 +859,9 @@ def main(argv=None):
         "max_abs_err": k4["bwd_err"],
         "ms": k4["bwd_ms"],
         "plain_ms": k4["bwd_plain_ms"],
+        "bound_ms": 1e3 * 3 * n / HBM_BYTES_PER_S,
+        "bound_by": "bytes",
+        "library_ms": None,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

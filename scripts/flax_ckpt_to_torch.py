@@ -8,11 +8,14 @@ Usage (in an environment with jax, flax and orbax):
     python scripts/flax_ckpt_to_torch.py -w ckpt -o ckpt_torch
 
 Reads `<ckpt>/state` + `experiment.json` through
-`spnet_tpu.io.checkpoint.load_checkpoint`, maps every flax leaf onto the
-port's state dict (`spnet_tpu_torch.convert.flax_to_state_dict`, which
-refuses leftover or missing leaves) and writes `<out>/state.pt` +
-`experiment.json`.  The config must be one the port builds (Xception,
-default head, NHWC stem).
+`spnet_tpu.io.checkpoint.load_checkpoint` (its config crosses to the
+port's `ExperimentConfig` through `experiment.json`'s text), maps every
+flax leaf onto the port's state dict
+(`spnet_tpu_torch.convert.flax_to_state_dict`, which refuses leftover or
+missing leaves) and writes `<out>/state.pt` + `experiment.json`.  The
+config must be one the port builds (`build_model` raises for the others:
+the InceptionResNetV2, NASNetMobile and DarkNet19 backbones, remat, the
+planar and fused stems).
 """
 
 import argparse
@@ -32,12 +35,15 @@ def main(argv=None):
     args = p.parse_args(argv)
 
     from spnet_tpu.io.checkpoint import load_checkpoint
+    from spnet_tpu_torch.config import ExperimentConfig
     from spnet_tpu_torch.convert import flax_to_state_dict
     from spnet_tpu_torch.io.checkpoint import save_checkpoint
     from spnet_tpu_torch.models.spnet import build_model
 
-    payload, cfg = load_checkpoint(args.weights)
-    model = build_model(cfg.model, num_outputs=cfg.grid.num_outputs)
+    payload, jax_cfg = load_checkpoint(args.weights)
+    cfg = ExperimentConfig.from_json(jax_cfg.to_json())
+    model = build_model(cfg.model, num_outputs=cfg.grid.num_outputs,
+                        device="cpu")
     state = flax_to_state_dict(payload["params"], payload["batch_stats"],
                                model)
     path = save_checkpoint(args.out, state, cfg,

@@ -14,8 +14,9 @@ import torch
 
 from spnet_tpu_torch.io.checkpoint import load_checkpoint
 from spnet_tpu_torch.models.spnet import build_model
-from spnet_tpu_torch.shared import ExperimentConfig, GridSpec, ModelConfig, \
-    TrainConfig
+from spnet_tpu_torch.config import (
+    ExperimentConfig, GridSpec, ModelConfig, TrainConfig,
+)
 
 
 def parse_grid(s: str) -> tuple[int, int, int]:
@@ -109,6 +110,7 @@ def load_model_and_state(ckpt_dir: str, device: str | torch.device):
     travels with the weights).  Returns (config, model in eval mode on
     `device`, step)."""
     payload, cfg = load_checkpoint(ckpt_dir)
-    model = build_model(cfg.model, num_outputs=cfg.grid.num_outputs)
+    model = build_model(cfg.model, num_outputs=cfg.grid.num_outputs,
+                        device=device)
     model.load_state_dict(payload["state_dict"])
-    return cfg, model.to(device).eval(), payload["step"]
+    return cfg, model, payload["step"]

@@ -18,7 +18,7 @@ from spnet_tpu_torch.cli.common import (
 )
 from spnet_tpu_torch.eval.evaluate import evaluate_network
 from spnet_tpu_torch.io.checkpoint import save_checkpoint
-from spnet_tpu_torch.shared import build_dataset
+from spnet_tpu_torch.data.dataset import build_dataset
 
 
 def main(argv=None):

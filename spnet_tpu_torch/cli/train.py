@@ -24,7 +24,7 @@ from spnet_tpu_torch.cli.common import (
 )
 from spnet_tpu_torch.eval.evaluate import evaluate_network
 from spnet_tpu_torch.io.checkpoint import save_train_state
-from spnet_tpu_torch.shared import build_dataset
+from spnet_tpu_torch.data.dataset import build_dataset
 from spnet_tpu_torch.train.loop import train_network
 
 

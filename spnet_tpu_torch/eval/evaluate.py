@@ -13,8 +13,10 @@ import numpy as np
 import torch
 
 from spnet_tpu_torch.eval.metrics import calc_errors, calc_map
-from spnet_tpu_torch.shared import IND_NOOBJ, VARS_PER_PRED, Dataset, \
-    ExperimentConfig, denormalize, show_pred_ellipses
+from spnet_tpu_torch.config import IND_NOOBJ, VARS_PER_PRED, ExperimentConfig
+from spnet_tpu_torch.data.dataset import Dataset
+from spnet_tpu_torch.grid import denormalize
+from spnet_tpu_torch.io.render import show_pred_ellipses
 from spnet_tpu_torch.train.loop import predict_in_batches
 from spnet_tpu_torch.train.steps import make_predict_step
 

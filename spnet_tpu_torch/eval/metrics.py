@@ -22,11 +22,8 @@ import dataclasses
 import numpy as np
 
 from spnet_tpu_torch.ops.raster import pair_iou
-from spnet_tpu_torch.shared import (
-    GridSpec,
-    IND_NOOBJ,
-    IND_RINGS,
-    VARS_PER_PRED,
+from spnet_tpu_torch.config import (
+    IND_NOOBJ, IND_RINGS, VARS_PER_PRED, GridSpec,
 )
 
 #: COCO-style IoU thresholds (reference `diagnostics.py:155`).

@@ -21,7 +21,7 @@ import os
 
 import torch
 
-from spnet_tpu_torch.shared import ExperimentConfig
+from spnet_tpu_torch.config import ExperimentConfig
 
 STATE_FILENAME = "state.pt"
 CONFIG_FILENAME = "experiment.json"

@@ -188,20 +188,22 @@ class ConvBN(nn.Module):
 
 
 class SeparableConvBN(nn.Module):
-    """Depthwise 3x3 SAME (stride s) [-> BatchNorm 'bn_dw' -> activation]
-    -> pointwise 1x1 -> BatchNorm (-> activation).
+    """[ReLU ->] depthwise 3x3 SAME (stride s) [-> BatchNorm 'bn_dw' ->
+    activation] -> pointwise 1x1 -> BatchNorm (-> activation).
 
     Xception's variant (stride 1, no BN between, ReLU or none) runs in eval
     mode as one `sepconv_infer` call, with the BN running stats folded into
-    f32 scale and bias: the fused kernel on the card, its plain version on
-    the CPU.  `plain=True` calls the plain version on any device; it exists
-    so that tests can hold the kernel against it.  Every other variant
-    (MobileNet's strided blocks with `bn_between` and ReLU6), and every
-    variant in train mode, runs the plain composition (`_plain_forward`)."""
+    f32 scale and bias and the input ReLU (`relu_in`) applied as the kernel
+    reads x: the fused kernel on the card, its plain version on the CPU.
+    `plain=True` calls the plain version on any device; it exists so that
+    tests can hold the kernel against it.  Every other variant (MobileNet's
+    strided blocks with `bn_between` and ReLU6), and every variant in train
+    mode, runs `F.relu` (when `relu_in`) and then the plain composition
+    (`_plain_forward`)."""
 
     def __init__(self, in_ch: int, features: int, stride: int = 1,
                  act: str = "", bn_between: bool = False,
-                 plain: bool = False):
+                 plain: bool = False, relu_in: bool = False):
         super().__init__()
         # flax kernels (3, 3, 1, C) and (1, 1, C, F), stored as (3, 3, C)
         # and (C, F): the layouts the kernel takes
@@ -214,16 +216,16 @@ class SeparableConvBN(nn.Module):
         self.stride, self.bn_between, self.plain = stride, bn_between, plain
         self.act = _activation(act)
         self.fused = stride == 1 and not bn_between and act in ("", "relu")
-        self.relu = act == "relu"
+        self.relu, self.relu_in = act == "relu", relu_in
 
     def forward(self, x):
         if self.training or not self.fused:
-            return self._plain_forward(x)
+            return self._plain_forward(F.relu(x) if self.relu_in else x)
         scale, bias = self.bn.folded()
         fn = sepconv_infer_torch if self.plain else sepconv_infer
         return fn(x.contiguous(), self.depthwise.weight,
                   self.pointwise.weight.to(x.dtype), scale, bias,
-                  relu=self.relu)
+                  relu=self.relu, relu_in=self.relu_in)
 
     def _plain_forward(self, x):
         """Depthwise conv with TF SAME pads (cuDNN on the card) [-> BN ->

@@ -42,8 +42,9 @@ from spnet_tpu_torch.models.mobilenet import MobileNet
 from spnet_tpu_torch.models.xception import Xception
 from spnet_tpu_torch.ops.activations import SelectiveSigmoid, \
     selective_sigmoid_torch
-from spnet_tpu_torch.shared import IND_NOOBJ, ORIG_IMG_HEIGHT, \
-    ORIG_IMG_WIDTH, VARS_PER_PRED, ModelConfig
+from spnet_tpu_torch.config import (
+    IND_NOOBJ, ORIG_IMG_HEIGHT, ORIG_IMG_WIDTH, VARS_PER_PRED, ModelConfig,
+)
 
 #: The ported backbones, each a constructor of (plain_kernels) -> module.
 BACKBONES = {
@@ -145,13 +146,14 @@ class SPNet(nn.Module):
         return list(self.backbone.LAYER_ORDER)
 
 
-def build_model(cfg: ModelConfig, num_outputs: int = 576,
-                device: str | torch.device = "cpu",
+def build_model(cfg: ModelConfig, num_outputs: int = 576, *,
+                device: str | torch.device,
                 generator: torch.Generator | None = None,
                 plain_kernels: bool = False) -> SPNet:
-    """SPNet for `cfg`, Keras-initialized from `generator` (seed 0 when
-    None), on `device`, in eval mode (a train step switches modes
-    itself)."""
+    """SPNet for `cfg`, Keras-initialized from `generator` (a CPU
+    generator; seed 0 when None), on `device`, in eval mode (a train step
+    switches modes itself).  `device` has no default: the caller names the
+    card or the CPU."""
     unported = {
         "backbone": cfg.backbone not in BACKBONES,
         "stem_planar": cfg.stem_planar,

@@ -5,12 +5,14 @@ Counterpart of `spnet_tpu/models/xception.py`: entry flow (2 VALID convs
 channels), exit flow (downsampling block + 1536/2048 separable convs).
 In eval mode all 34 separable convs run through
 `ops/sepconv.py::sepconv_infer`; in train mode through their plain
-composition (`SeparableConvBN._plain_forward`).
+composition (`SeparableConvBN._plain_forward`).  The ReLU in front of 31
+of them is the separable conv's `relu_in`: in eval mode the kernel applies
+it as it reads its input, in train mode it is `F.relu` before the
+composition.
 """
 
 from __future__ import annotations
 
-import torch.nn.functional as F
 from torch import nn
 
 from spnet_tpu_torch.models.layers import ConvBN, SeparableConvBN, \
@@ -19,22 +21,20 @@ from spnet_tpu_torch.models.layers import ConvBN, SeparableConvBN, \
 
 class _DownBlock(nn.Module):
     """[relu ->] sepconv -> relu -> sepconv -> SAME max-pool, plus a
-    strided 1x1 projection shortcut."""
+    strided 1x1 projection shortcut (of the input before the ReLU)."""
 
     def __init__(self, in_ch: int, features: int, first_relu: bool = True,
                  plain: bool = False):
         super().__init__()
         self.shortcut = ConvBN(in_ch, features, 1, stride=2)
-        self.sep1 = SeparableConvBN(in_ch, features, plain=plain)
-        self.sep2 = SeparableConvBN(features, features, plain=plain)
-        self.first_relu = first_relu
+        self.sep1 = SeparableConvBN(in_ch, features, plain=plain,
+                                    relu_in=first_relu)
+        self.sep2 = SeparableConvBN(features, features, plain=plain,
+                                    relu_in=True)
 
     def forward(self, x):
         res = self.shortcut(x)
-        if self.first_relu:
-            x = F.relu(x)
-        x = self.sep2(F.relu(self.sep1(x)))
-        return max_pool_same(x, 3, 2) + res
+        return max_pool_same(self.sep2(self.sep1(x)), 3, 2) + res
 
 
 class _MiddleBlock(nn.Module):
@@ -42,15 +42,15 @@ class _MiddleBlock(nn.Module):
 
     def __init__(self, features: int = 728, plain: bool = False):
         super().__init__()
-        self.sep1 = SeparableConvBN(features, features, plain=plain)
-        self.sep2 = SeparableConvBN(features, features, plain=plain)
-        self.sep3 = SeparableConvBN(features, features, plain=plain)
+        self.sep1 = SeparableConvBN(features, features, plain=plain,
+                                    relu_in=True)
+        self.sep2 = SeparableConvBN(features, features, plain=plain,
+                                    relu_in=True)
+        self.sep3 = SeparableConvBN(features, features, plain=plain,
+                                    relu_in=True)
 
     def forward(self, x):
-        res = x
-        for sep in (self.sep1, self.sep2, self.sep3):
-            x = sep(F.relu(x))
-        return x + res
+        return self.sep3(self.sep2(self.sep1(x))) + x
 
 
 class Xception(nn.Module):
@@ -76,8 +76,8 @@ class Xception(nn.Module):
         for i in range(8):
             self.add_module(f"middle{i + 1}", _MiddleBlock(728, plain=plain))
         self.exit_shortcut = ConvBN(728, 1024, 1, stride=2)
-        self.exit_sep1 = SeparableConvBN(728, 728, plain=plain)
-        self.exit_sep2 = SeparableConvBN(728, 1024, plain=plain)
+        self.exit_sep1 = SeparableConvBN(728, 728, plain=plain, relu_in=True)
+        self.exit_sep2 = SeparableConvBN(728, 1024, plain=plain, relu_in=True)
         self.exit_sep3 = SeparableConvBN(1024, 1536, act="relu", plain=plain)
         self.exit_sep4 = SeparableConvBN(1536, 2048, act="relu", plain=plain)
 
@@ -97,7 +97,5 @@ class Xception(nn.Module):
         for i in range(8):
             x = getattr(self, f"middle{i + 1}")(x)
         res = self.exit_shortcut(x)
-        x = self.exit_sep1(F.relu(x))
-        x = self.exit_sep2(F.relu(x))
-        x = max_pool_same(x, 3, 2) + res
+        x = max_pool_same(self.exit_sep2(self.exit_sep1(x)), 3, 2) + res
         return self.exit_sep4(self.exit_sep3(x))

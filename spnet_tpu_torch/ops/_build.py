@@ -27,7 +27,7 @@ BUILD_DIR = _PKG / "_build"
 SOURCES = ("sepconv.cu", "loss.cu", "activations.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
 
@@ -53,13 +53,16 @@ def build() -> tuple[Path, float]:
 
     Returns (library path, seconds spent compiling; 0.0 when cached).
     The library is written to a temporary name and renamed into place, so
-    processes building it at the same time never load a half-written file."""
+    processes building it at the same time never load a half-written file.
+    `build.log` keeps the compilers' output of the last build in this
+    process (ptxas's registers, shared memory and spills per kernel)."""
     path = library_path()
     if path.exists():
         return path, 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     t0 = time.perf_counter()
+    build.log = ""
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
         objs = [os.path.join(work, f"{Path(name).stem}.o")
                 for name in SOURCES]
@@ -76,8 +79,12 @@ def build() -> tuple[Path, float]:
                       in zip(stage, procs, logs) if p.returncode]
             if failed:
                 raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+            build.log += "".join(logs)
         os.replace(tmp, path)
     return path, time.perf_counter() - t0
+
+
+build.log = ""
 
 
 @functools.lru_cache(maxsize=None)
@@ -87,8 +94,10 @@ def load_library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(path))
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.spnet_sepconv_infer.argtypes = [p, p, p, p, p, p,
-                                        i, i, i, i, i, i, i, p]
+                                        i, i, i, i, i, i, i, i, i, i, i, p]
     lib.spnet_sepconv_infer.restype = i
+    lib.spnet_sepconv_wgmma_smem.argtypes = [i, i, i]
+    lib.spnet_sepconv_wgmma_smem.restype = i
     ll, f = ctypes.c_longlong, ctypes.c_float
     lib.spnet_loss_fwd_partials.argtypes = [ll]
     lib.spnet_loss_fwd_partials.restype = i

@@ -23,7 +23,7 @@ from __future__ import annotations
 
 import torch
 
-from spnet_tpu_torch.shared import IND_NOOBJ, VARS_PER_PRED
+from spnet_tpu_torch.config import IND_NOOBJ, VARS_PER_PRED
 
 
 def _noobj_lanes(x):

@@ -27,17 +27,9 @@ from __future__ import annotations
 
 import torch
 
-from spnet_tpu_torch.shared import (
-    IND_A,
-    IND_ANGLE1,
-    IND_ANGLE2,
-    IND_B,
-    IND_CX,
-    IND_CY,
-    IND_NOOBJ,
-    IND_RINGS,
-    VARS_PER_PRED,
-    LossWeights,
+from spnet_tpu_torch.config import (
+    IND_A, IND_ANGLE1, IND_ANGLE2, IND_B, IND_CX, IND_CY, IND_NOOBJ,
+    IND_RINGS, VARS_PER_PRED, LossWeights,
 )
 
 LOSS_TYPES = ("same", "hybrid")

@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import torch
 
-from spnet_tpu_torch.shared import ORIG_IMG_HEIGHT, ORIG_IMG_WIDTH
+from spnet_tpu_torch.config import ORIG_IMG_HEIGHT, ORIG_IMG_WIDTH
 
 #: Half-pixel boundary dilation (see the JAX module's docstring).
 BOUNDARY_PAD = 0.5

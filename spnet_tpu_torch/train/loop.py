@@ -5,7 +5,7 @@ one device:
 
   * the uint8 training set and the val frames live on the device; each
     step gathers its minibatch there, with the epoch's order from the
-    numpy `spnet_tpu.data.dataset.batches` under the JAX package's seeds;
+    numpy `data.dataset.batches` under the JAX package's seeds;
   * augmentation and dropout draw from a `torch.Generator` on the device,
     seeded per epoch, so a resumed run draws what an unbroken one would;
   * the 1-cycle schedule keys off the train state's step, and the epoch
@@ -33,9 +33,11 @@ from spnet_tpu_torch.eval.metrics import calc_errors
 from spnet_tpu_torch.io.checkpoint import restore_if_exists, save_train_state
 from spnet_tpu_torch.models.spnet import build_model
 from spnet_tpu_torch.ops.losses import loss_components
-from spnet_tpu_torch.shared import IND_NOOBJ, VARS_PER_PRED, Dataset, \
-    ExperimentConfig, LossLog, batches, denormalize, save_progress_plot, \
-    show_pred_ellipses
+from spnet_tpu_torch.config import IND_NOOBJ, VARS_PER_PRED, ExperimentConfig
+from spnet_tpu_torch.data.dataset import Dataset, batches
+from spnet_tpu_torch.grid import denormalize
+from spnet_tpu_torch.io.logs import LossLog, save_progress_plot
+from spnet_tpu_torch.io.render import show_pred_ellipses
 from spnet_tpu_torch.train.schedule import onecycle_schedule
 from spnet_tpu_torch.train.state import create_train_state, unfreeze
 from spnet_tpu_torch.train.steps import make_predict_step, make_train_step

@@ -22,7 +22,7 @@ from spnet_tpu_torch.models.layers import Kernel
 from spnet_tpu_torch.ops.augment import augment_on_the_fly
 from spnet_tpu_torch.ops.losses import loss_components, spnet_loss, \
     spnet_loss_fused
-from spnet_tpu_torch.shared import LossWeights
+from spnet_tpu_torch.config import LossWeights
 
 
 def _prep_x(x):

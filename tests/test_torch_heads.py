@@ -15,16 +15,19 @@ import pytest
 import torch
 from PIL import Image
 
-from spnet_tpu.config import ExperimentConfig, GridSpec, LossWeights, \
-    ModelConfig
-from spnet_tpu.data.dataset import build_x
+from spnet_tpu.config import ExperimentConfig as JExperimentConfig
+from spnet_tpu.config import LossWeights as JLossWeights
+from spnet_tpu.config import ModelConfig as JModelConfig
 from spnet_tpu.eval.predict import predict_network as j_predict_network
-from spnet_tpu.grid import batch_ellipses_to_grid, canonicalize_records, \
-    normalize
 from spnet_tpu.models.spnet import build_model as jbuild
 from spnet_tpu.ops.losses import loss_components as j_components
 from spnet_tpu.train.steps import kernel_l2 as j_kernel_l2
+from spnet_tpu_torch.config import ExperimentConfig, GridSpec, LossWeights, \
+    ModelConfig
 from spnet_tpu_torch.convert import flax_to_state_dict, flax_tree_to_torch
+from spnet_tpu_torch.data.dataset import build_x
+from spnet_tpu_torch.grid import batch_ellipses_to_grid, \
+    canonicalize_records, normalize
 from spnet_tpu_torch.eval.predict import predict_network
 from spnet_tpu_torch.models.spnet import build_model
 from spnet_tpu_torch.ops.activations import SelectiveSigmoid
@@ -32,14 +35,16 @@ from spnet_tpu_torch.train.steps import forward_loss, make_predict_step
 
 torch.set_num_threads(2)
 SIZE = 64  # MobileNetTiny: 32² after the stem, 1x1x128 into the head
-W = LossWeights()
+W, JW = LossWeights(), JLossWeights()
 # head -> (selective_sigmoid, compound_head)
 HEADS = {"ss": (True, False), "compound": (False, True), "both": (True, True)}
 
 
-def _cfg(head, loss_type="same"):
+def _cfg(head, loss_type="same", config=ModelConfig):
+    """The port's ModelConfig; `config=JModelConfig` gives the JAX
+    package's for its oracle."""
     ss, comp = HEADS[head]
-    return ModelConfig(backbone="MobileNetTiny", input_size=SIZE,
+    return config(backbone="MobileNetTiny", input_size=SIZE,
                        compute_dtype="float32", dropout_rate=0.0,
                        selective_sigmoid=ss, compound_head=comp,
                        loss_type=loss_type)
@@ -86,7 +91,7 @@ def _setup(head):
     """The flax model of `head`, perturbed variables and 4 seeded frames
     (normalized floats) with labels."""
     rng = np.random.default_rng(list(HEADS).index(head))
-    jm = jbuild(_cfg(head))
+    jm = jbuild(_cfg(head, config=JModelConfig))
     x = rng.normal(0, 1, (4, SIZE, SIZE, 1)).astype(np.float32)
     v = jax.jit(lambda k, x: jm.init({"params": k, "dropout": k}, x,
                                      train=False))(jax.random.key(0), x)
@@ -96,7 +101,7 @@ def _setup(head):
 
 
 def _torch_model(head, params, stats, loss_type="same"):
-    model = build_model(_cfg(head, loss_type))
+    model = build_model(_cfg(head, loss_type), device="cpu")
     model.load_state_dict(flax_to_state_dict(params, stats, model))
     return model
 
@@ -147,7 +152,7 @@ def test_train_gradient_matches_jax(head, loss_type):
         out, _ = jm.apply({"params": p, "batch_stats": stats}, x,
                           train=True, mutable=["batch_stats"],
                           rngs={"dropout": jax.random.key(1)})
-        data = j_components(y, out, W, loss_type)["total"]
+        data = j_components(y, out, JW, loss_type)["total"]
         return data + 1e-4 * j_kernel_l2(p, "reference"), data
 
     (j_loss, j_data), j_grads = jax.jit(
@@ -182,9 +187,9 @@ def test_ss_head_runs_through_the_autograd_function(monkeypatch):
                         lambda x: calls.append(x.shape) or orig(x))
     x = torch.zeros(2, SIZE, SIZE, 1)
     with torch.inference_mode():
-        build_model(_cfg("ss"))(x)
+        build_model(_cfg("ss"), device="cpu")(x)
         assert calls == [(2, 576)]
-        build_model(_cfg("ss"), plain_kernels=True)(x)
+        build_model(_cfg("ss"), device="cpu", plain_kernels=True)(x)
         assert calls == [(2, 576)]
 
 
@@ -202,14 +207,15 @@ def test_hybrid_decode_applies_a_second_sigmoid(tmp_path):
     decoded noobj values lie in (sigmoid(0), sigmoid(1))."""
     _, params, stats, _, _ = _setup("ss")
     cfg = ExperimentConfig(model=_cfg("ss", "hybrid"))
+    jcfg = JExperimentConfig(model=_cfg("ss", "hybrid", JModelConfig))
     rng = np.random.default_rng(9)
     _write_frames(tmp_path / "frames",
                   rng.integers(0, 256, (4, SIZE, SIZE, 1), dtype=np.uint8))
-    jm = jbuild(cfg.model)
+    jm = jbuild(jcfg.model)
     state = collections.namedtuple("State", "params batch_stats")(params,
                                                                   stats)
     yp_jax, files_jax = j_predict_network(
-        cfg, state, jm, str(tmp_path / "frames"),
+        jcfg, state, jm, str(tmp_path / "frames"),
         log_dir=str(tmp_path / "jax"), batch_size=2, num_draw=0, verbose=0)
     model = _torch_model("ss", params, stats, "hybrid")
     yp, files = predict_network(cfg, model, str(tmp_path / "frames"), "cpu",
@@ -242,7 +248,8 @@ def test_flax_checkpoint_converts_and_serves(tmp_path):
     head = "both"
     jm, params, stats, x, _ = _setup(head)
     cfg = ExperimentConfig(model=_cfg(head))
-    j_save(str(tmp_path / "jax"), InferenceState(params, stats, 5), cfg)
+    j_save(str(tmp_path / "jax"), InferenceState(params, stats, 5),
+           JExperimentConfig(model=_cfg(head, config=JModelConfig)))
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     spec = importlib.util.spec_from_file_location(
         "flax_ckpt_to_torch", os.path.join(root, "scripts",

@@ -10,11 +10,12 @@ import numpy as np
 import pytest
 import torch
 
-from spnet_tpu.config import GridSpec, LossWeights
-from spnet_tpu.grid import normalize
+from spnet_tpu.config import LossWeights as JLossWeights
 from spnet_tpu.ops.losses import loss_components as j_components
 from spnet_tpu.ops.losses import spnet_loss as j_loss
 from spnet_tpu.ops.losses import spnet_loss_pallas
+from spnet_tpu_torch.config import GridSpec, LossWeights
+from spnet_tpu_torch.grid import normalize
 from spnet_tpu_torch.ops.losses import (
     loss_components,
     spnet_loss,
@@ -23,7 +24,7 @@ from spnet_tpu_torch.ops.losses import (
     spnet_loss_fwd,
 )
 
-W = LossWeights()
+W, JW = LossWeights(), JLossWeights()
 LOSS_TYPES = ["same", "hybrid"]
 
 
@@ -50,13 +51,13 @@ def test_components_match_jax(loss_type):
     """Each component and the total, rel 1e-5 (float32, other summation
     order)."""
     yt, yp = _rand_batch(1)
-    ref = jax.jit(lambda a, b: j_components(a, b, W, loss_type))(yt, yp)
+    ref = jax.jit(lambda a, b: j_components(a, b, JW, loss_type))(yt, yp)
     got = loss_components(torch.from_numpy(yt), torch.from_numpy(yp), W,
                           loss_type)
     assert set(got) == set(ref)
     for k in ref:
         assert float(got[k]) == pytest.approx(float(ref[k]), rel=1e-5), k
-    total = float(jax.jit(lambda a, b: j_loss(a, b, W, loss_type))(yt, yp))
+    total = float(jax.jit(lambda a, b: j_loss(a, b, JW, loss_type))(yt, yp))
     assert float(spnet_loss(torch.from_numpy(yt), torch.from_numpy(yp), W,
                             loss_type)) == pytest.approx(total, rel=1e-5)
 
@@ -69,9 +70,9 @@ def test_gradients_match_jax_pallas(loss_type):
     tests/test_losses.py."""
     yt, yp = _rand_batch(4, b=5)
     g_ref = np.asarray(jax.jit(jax.grad(
-        lambda p, t: spnet_loss_pallas(t, p, W, loss_type)))(yp, yt))
+        lambda p, t: spnet_loss_pallas(t, p, JW, loss_type)))(yp, yt))
     v_ref = float(jax.jit(
-        lambda t, p: spnet_loss_pallas(t, p, W, loss_type))(yt, yp))
+        lambda t, p: spnet_loss_pallas(t, p, JW, loss_type))(yt, yp))
     t = torch.from_numpy(yt)
     for fn in (spnet_loss, spnet_loss_fused):
         p = torch.from_numpy(yp).requires_grad_(True)

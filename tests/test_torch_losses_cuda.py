@@ -9,7 +9,7 @@ Elsewhere every case skips."""
 import pytest
 import torch
 
-from spnet_tpu.config import LossWeights
+from spnet_tpu_torch.config import LossWeights
 from spnet_tpu_torch.ops.losses import (
     spnet_loss,
     spnet_loss_bwd,

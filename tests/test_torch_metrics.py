@@ -9,10 +9,11 @@ import numpy as np
 import pytest
 import torch
 
-from spnet_tpu.config import GridSpec, IND_NOOBJ, VARS_PER_PRED
+from spnet_tpu.config import GridSpec as JGridSpec
 from spnet_tpu.eval import metrics as jmetrics
-from spnet_tpu.grid import angle_deg_to_cs2, denormalize
 from spnet_tpu.ops import raster as jraster
+from spnet_tpu_torch.config import IND_NOOBJ, VARS_PER_PRED, GridSpec
+from spnet_tpu_torch.grid import angle_deg_to_cs2, denormalize
 from spnet_tpu_torch.eval import metrics as tmetrics
 from spnet_tpu_torch.ops import raster as traster
 
@@ -130,10 +131,12 @@ def test_class_acc_may_go_negative_like_the_reference():
 def test_slot_ious_and_calc_map_match_jax():
     yp, yt, grid = _predictions(4)
     ious, fn = tmetrics.slot_ious(yp, yt, grid)
-    ious_j, fn_j = jmetrics.slot_ious(yp, yt, grid)
+    jgrid = JGridSpec(**dataclasses.asdict(grid))
+    ious_j, fn_j = jmetrics.slot_ious(yp, yt, jgrid)
     np.testing.assert_array_equal(fn, fn_j)
     np.testing.assert_allclose(ious, ious_j, rtol=0, atol=1e-3)
-    assert tmetrics.calc_map(yp, yt, grid) == jmetrics.calc_map(yp, yt, grid)
+    assert tmetrics.calc_map(yp, yt, grid) == jmetrics.calc_map(yp, yt,
+                                                                jgrid)
     for th in tmetrics.MAP_THRESHOLDS:
         assert tmetrics.precision_from_ious(ious, fn, th) == \
             jmetrics.precision_from_ious(ious_j, fn_j, th)

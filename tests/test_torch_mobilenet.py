@@ -5,6 +5,7 @@ width and the freeze order taken from the backbone, a MobileNetTiny train
 step, the L2 scope and freeze labels, and the CLI end to end."""
 
 import collections
+import dataclasses
 import glob
 import os
 import subprocess
@@ -18,10 +19,8 @@ import torch
 from flax import linen as nn
 from PIL import Image
 
-from spnet_tpu.config import GridSpec, LossWeights, ModelConfig
-from spnet_tpu.data.csvio import write_meta_file
-from spnet_tpu.grid import batch_ellipses_to_grid, canonicalize_records, \
-    normalize
+from spnet_tpu.config import LossWeights as JLossWeights
+from spnet_tpu.config import ModelConfig as JModelConfig
 from spnet_tpu.models.layers import ConvBN as JConvBN
 from spnet_tpu.models.layers import SeparableConvBN as JSeparableConvBN
 from spnet_tpu.models.mobilenet import relu6
@@ -31,7 +30,11 @@ from spnet_tpu.train.state import backbone_freeze_labels as j_labels
 from spnet_tpu.train.state import create_train_state as j_create_state
 from spnet_tpu.train.steps import _l2_in_scope as j_l2_in_scope
 from spnet_tpu.train.steps import make_train_step as j_make_train_step
+from spnet_tpu_torch.config import GridSpec, LossWeights, ModelConfig
 from spnet_tpu_torch.convert import flax_to_state_dict, flax_tree_to_torch
+from spnet_tpu_torch.data.csvio import write_meta_file
+from spnet_tpu_torch.grid import batch_ellipses_to_grid, \
+    canonicalize_records, normalize
 from spnet_tpu_torch.io.checkpoint import load_checkpoint
 from spnet_tpu_torch.models.layers import ConvBN, SeparableConvBN
 from spnet_tpu_torch.models.mobilenet import MobileNet
@@ -44,7 +47,12 @@ from spnet_tpu_torch.train.steps import _l2_in_scope, kernel_names, \
 
 torch.set_num_threads(2)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-W = LossWeights()
+W, JW = LossWeights(), JLossWeights()
+
+
+def _jcfg(cfg):
+    """The JAX package's ModelConfig of the port's `cfg`, for the oracle."""
+    return JModelConfig(**dataclasses.asdict(cfg))
 
 
 def _np_tree(tree):
@@ -86,12 +94,12 @@ def test_mobilenet_full_width_matches_jax():
                       compute_dtype="float32")
     rng = np.random.default_rng(0)
     x = rng.normal(0, 1, (2, 96, 96, 1)).astype(np.float32)
-    jm = jbuild(cfg)
+    jm = jbuild(_jcfg(cfg))
     params, stats = _variables(jm, x, rng, kernel_gain=2.0)
     y_jax = np.asarray(jax.jit(
         lambda p, s, x: jm.apply({"params": p, "batch_stats": s}, x,
                                  train=False))(params, stats, x))
-    tm = build_model(cfg)
+    tm = build_model(cfg, device="cpu")
     tm.load_state_dict(flax_to_state_dict(params, stats, tm))
     with torch.inference_mode():
         y = tm(torch.from_numpy(x)).numpy()
@@ -167,7 +175,7 @@ def test_backbone_size_and_head_width():
 
 
 def _shapes(cfg, size):
-    jm = jbuild(cfg)
+    jm = jbuild(_jcfg(cfg))
     shapes = jax.eval_shape(
         lambda: jm.init({"params": jax.random.key(0),
                          "dropout": jax.random.key(0)},
@@ -187,7 +195,7 @@ def test_freeze_labels_match_jax(backbone):
     flags = jax.tree_util.tree_map(
         lambda lab, s: np.full(s.shape, lab == "frozen", np.float32),
         labels, shapes)
-    model = build_model(cfg)
+    model = build_model(cfg, device="cpu")
     assert model.backbone_layer_order() == list(jm.backbone_layer_order())
     assert model.backbone_layer_order()[:2] == ["conv1", "block1"]
     want = {n: "frozen" if v.numpy().all() else "train"
@@ -211,7 +219,7 @@ def test_l2_scope_matches_jax(head):
     flags = jax.tree_util.tree_map_with_path(
         lambda p, s: np.full(s.shape, j_l2_in_scope(p, "reference"),
                              np.float32), shapes)
-    model = build_model(cfg)
+    model = build_model(cfg, device="cpu")
     want = {n for n, v in flax_tree_to_torch(flags, model).items()
             if v.numpy().all()}
     got = {n for n in kernel_names(model) if _l2_in_scope(n, "reference")}
@@ -257,7 +265,7 @@ def test_mobilenet_tiny_train_steps_match_jax(monkeypatch):
     rng = np.random.default_rng(3)
     x_all = rng.integers(0, 256, (8, size, size, 1), dtype=np.uint8)
     y_all = _labels(rng, 8)
-    jm = jbuild(cfg)
+    jm = jbuild(_jcfg(cfg))
     params, stats = _variables(jm, x_all[:1].astype(np.float32), rng)
     monkeypatch.setenv("SPNET_SCAN_UNROLL", "1")
     idx_mat = np.array([[0, 3, 5, 6], [1, 2, 4, 7]], np.int32)
@@ -268,13 +276,13 @@ def test_mobilenet_tiny_train_steps_match_jax(monkeypatch):
     j_state = j_state.replace(
         params=jax.tree_util.tree_map(jnp.asarray, params),
         batch_stats=jax.tree_util.tree_map(jnp.asarray, stats))
-    j_step = j_make_train_step(jm, W, "same", l2_reg=1e-4, augment=False,
+    j_step = j_make_train_step(jm, JW, "same", l2_reg=1e-4, augment=False,
                                indexed="epoch", pregather=False)
     j_state, j_losses = j_step(j_state, jnp.asarray(x_all),
                                jnp.asarray(y_all), jnp.asarray(idx_mat),
                                jax.random.key(1))
 
-    model = build_model(cfg)
+    model = build_model(cfg, device="cpu")
     model.load_state_dict(flax_to_state_dict(params, stats, model))
     sched = onecycle_schedule(lr_max, total)
     state = create_train_state(model, sched, adam_variant="optax")

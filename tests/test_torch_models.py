@@ -3,6 +3,8 @@ JAX package: full-width SPNet Xception with converted weights, the stem,
 the SAME max-pool, the head's flatten order, the Keras initializer's fans,
 train-mode dropout and separable convs, and what `build_model` refuses."""
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -10,8 +12,9 @@ import pytest
 import torch
 from flax import linen as nn
 
-from spnet_tpu.config import ModelConfig
+from spnet_tpu.config import ModelConfig as JModelConfig
 from spnet_tpu.models.spnet import Stem as JStem, build_model as jbuild
+from spnet_tpu_torch.config import ModelConfig
 from spnet_tpu_torch.convert import flax_to_state_dict
 from spnet_tpu_torch.models.layers import Dropout, SeparableConvBN, \
     init_keras_, max_pool_same
@@ -58,13 +61,13 @@ def test_spnet_xception_full_width_matches_jax():
     cfg = ModelConfig(input_size=144, compute_dtype="float32")
     rng = np.random.default_rng(0)
     x = rng.normal(0, 1, (2, 144, 144, 1)).astype(np.float32)
-    jm = jbuild(cfg)
+    jm = jbuild(JModelConfig(**dataclasses.asdict(cfg)))
     params, stats = _jax_variables(jm, x, rng)
     y_jax = np.asarray(jax.jit(
         lambda p, s, x: jm.apply({"params": p, "batch_stats": s}, x,
                                  train=False))(params, stats, x))
 
-    tm = build_model(cfg)
+    tm = build_model(cfg, device="cpu")
     tm.load_state_dict(flax_to_state_dict(params, stats, tm))
     with torch.inference_mode():
         y = tm(torch.from_numpy(x)).numpy()
@@ -135,7 +138,7 @@ def test_keras_init_uses_flax_fans():
     """glorot_uniform on the FLAX shapes: a depthwise (3, 3, 1, C) kernel
     has fan_in 9 and fan_out 9*C (torch's own fans for (C, 1, 3, 3)
     differ); pointwise (1, 1, C, F) has C and F."""
-    model = build_model(ModelConfig(input_size=96),
+    model = build_model(ModelConfig(input_size=96), device="cpu",
                         generator=torch.Generator().manual_seed(3))
     sep = model.backbone.block2.sep1
     c, f = 64, 128
@@ -148,7 +151,7 @@ def test_keras_init_uses_flax_fans():
         assert np.abs(w).max() > 0.95 * lim
         # uniform(-l, l) has std l / sqrt(3)
         assert abs(w.std() - lim / np.sqrt(3)) < 0.1 * lim
-    g1 = build_model(ModelConfig(input_size=96),
+    g1 = build_model(ModelConfig(input_size=96), device="cpu",
                      generator=torch.Generator().manual_seed(3))
     assert torch.equal(g1.final_output.weight, model.final_output.weight)
 
@@ -160,7 +163,17 @@ def test_keras_init_uses_flax_fans():
 ])
 def test_build_model_refuses_unported_options(field, value):
     with pytest.raises(NotImplementedError, match=field):
-        build_model(ModelConfig(input_size=96, **{field: value}))
+        build_model(ModelConfig(input_size=96, **{field: value}),
+                    device="cpu")
+
+
+def test_build_model_names_its_device():
+    """`build_model` has no default device: the caller names the card or
+    the CPU, and the model's tensors lie there."""
+    with pytest.raises(TypeError, match="device"):
+        build_model(ModelConfig(input_size=96))
+    model = build_model(ModelConfig(input_size=96), device="cpu")
+    assert {p.device.type for p in model.state_dict().values()} == {"cpu"}
 
 
 def test_train_mode_dropout_draws_from_the_generator():

@@ -5,6 +5,8 @@ package: both Adam variants update by update against `optax.adam(eps=
 of the schedule the update applies after `unfreeze`, the backbone freeze
 labels of the full SPNet, and the 1-cycle schedule."""
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -13,12 +15,13 @@ import pytest
 import torch
 from torch import nn
 
-from spnet_tpu.config import ModelConfig
+from spnet_tpu.config import ModelConfig as JModelConfig
 from spnet_tpu.models.spnet import build_model as jbuild
 from spnet_tpu.train.schedule import onecycle_lut
 from spnet_tpu.train.schedule import onecycle_schedule as j_schedule
 from spnet_tpu.train.state import backbone_freeze_labels as j_labels
 from spnet_tpu.train.state import make_optimizer as j_make_optimizer
+from spnet_tpu_torch.config import ModelConfig
 from spnet_tpu_torch.convert import flax_tree_to_torch
 from spnet_tpu_torch.models.spnet import build_model
 from spnet_tpu_torch.train.optim import adam_init, optax_adam_update
@@ -163,7 +166,7 @@ def test_spnet_freeze_labels_match_jax():
     the JAX label tree: 9 of Xception's 18 top-level blocks frozen, stem
     and head never."""
     cfg = ModelConfig(input_size=64, compute_dtype="float32")
-    jm = jbuild(cfg)
+    jm = jbuild(JModelConfig(**dataclasses.asdict(cfg)))
     shapes = jax.eval_shape(
         lambda: jm.init({"params": jax.random.key(0),
                          "dropout": jax.random.key(0)},
@@ -172,7 +175,7 @@ def test_spnet_freeze_labels_match_jax():
     flags = jax.tree_util.tree_map(
         lambda lab, s: np.full(s.shape, lab == "frozen", np.float32),
         labels, shapes)
-    model = build_model(cfg)
+    model = build_model(cfg, device="cpu")
     assert model.backbone_layer_order() == list(jm.backbone_layer_order())
     want = {n: "frozen" if v.numpy().all() else "train"
             for n, v in flax_tree_to_torch(flags, model).items()}

@@ -6,6 +6,7 @@ gradient leaf by leaf, and three steps of `make_train_step(indexed=
 'epoch')` on the same minibatch indices."""
 
 import collections
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -14,9 +15,8 @@ import pytest
 import torch
 from flax import linen as nn
 
-from spnet_tpu.config import GridSpec, LossWeights, ModelConfig
-from spnet_tpu.grid import batch_ellipses_to_grid, canonicalize_records, \
-    normalize
+from spnet_tpu.config import LossWeights as JLossWeights
+from spnet_tpu.config import ModelConfig as JModelConfig
 from spnet_tpu.models.layers import ConvBN as JConvBN
 from spnet_tpu.models.layers import SeparableConvBN as JSeparableConvBN
 from spnet_tpu.models.spnet import Stem as JStem
@@ -27,7 +27,10 @@ from spnet_tpu.train.state import create_train_state as j_create_state
 from spnet_tpu.train.steps import kernel_l2 as j_kernel_l2
 from spnet_tpu.train.steps import make_eval_step as j_make_eval_step
 from spnet_tpu.train.steps import make_train_step as j_make_train_step
+from spnet_tpu_torch.config import GridSpec, LossWeights, ModelConfig
 from spnet_tpu_torch.convert import flax_to_state_dict, flax_tree_to_torch
+from spnet_tpu_torch.grid import batch_ellipses_to_grid, \
+    canonicalize_records, normalize
 from spnet_tpu_torch.models.layers import BatchNorm, ConvBN, SeparableConvBN
 from spnet_tpu_torch.models.spnet import Stem, build_model
 from spnet_tpu_torch.train.schedule import onecycle_schedule
@@ -38,7 +41,7 @@ from spnet_tpu_torch.train.steps import forward_loss, kernel_l2, \
 torch.set_num_threads(2)
 SIZE = 64
 CFG = ModelConfig(input_size=SIZE, compute_dtype="float32", dropout_rate=0.0)
-W = LossWeights()
+W, JW = LossWeights(), JLossWeights()
 
 
 def _np_tree(tree):
@@ -141,7 +144,7 @@ def spnet_setup():
     """Full-width SPNet (float32, dropout 0) with perturbed BN, and a
     seeded uint8 dataset of 8 frames with labels."""
     rng = np.random.default_rng(0)
-    jm = jbuild(CFG)
+    jm = jbuild(JModelConfig(**dataclasses.asdict(CFG)))
     x_all = rng.integers(0, 256, (8, SIZE, SIZE, 1), dtype=np.uint8)
     y_all = _labels(rng, 8)
     v = jax.jit(lambda k, x: jm.init({"params": k, "dropout": k}, x,
@@ -153,7 +156,7 @@ def spnet_setup():
 
 
 def _torch_model(params, stats):
-    model = build_model(CFG)
+    model = build_model(CFG, device="cpu")
     model.load_state_dict(flax_to_state_dict(params, stats, model))
     return model
 
@@ -174,7 +177,7 @@ def test_spnet_loss_and_gradients_match_jax(spnet_setup):
         out, upd = jm.apply({"params": p, "batch_stats": stats}, x,
                             train=True, mutable=["batch_stats"],
                             rngs={"dropout": jax.random.key(1)})
-        data = j_components(y, out, W, "same")["total"]
+        data = j_components(y, out, JW, "same")["total"]
         return data + 1e-4 * j_kernel_l2(p, "reference"), (data, upd)
 
     (j_loss, (j_data, j_upd)), j_grads = jax.jit(
@@ -227,7 +230,7 @@ def test_three_train_steps_match_jax(spnet_setup, monkeypatch):
                                                             params),
                               batch_stats=jax.tree_util.tree_map(
                                   jnp.asarray, stats))
-    j_step = j_make_train_step(jm, W, "same", l2_reg=1e-4, augment=False,
+    j_step = j_make_train_step(jm, JW, "same", l2_reg=1e-4, augment=False,
                                indexed="epoch", pregather=False)
     j_state, j_losses = j_step(j_state, jnp.asarray(x_all),
                                jnp.asarray(y_all), jnp.asarray(idx_mat),

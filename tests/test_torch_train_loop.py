@@ -15,11 +15,12 @@ import pytest
 import torch
 from PIL import Image
 
-from spnet_tpu.config import ExperimentConfig, ModelConfig, TrainConfig
-from spnet_tpu.data.csvio import write_meta_file
-from spnet_tpu.data.dataset import Dataset
-from spnet_tpu.grid import batch_ellipses_to_grid, canonicalize_records, \
-    normalize
+from spnet_tpu_torch.config import ExperimentConfig, ModelConfig, \
+    TrainConfig
+from spnet_tpu_torch.data.csvio import write_meta_file
+from spnet_tpu_torch.data.dataset import Dataset
+from spnet_tpu_torch.grid import batch_ellipses_to_grid, \
+    canonicalize_records, normalize
 from spnet_tpu_torch.io.checkpoint import load_checkpoint, \
     restore_if_exists, save_checkpoint, save_train_state
 from spnet_tpu_torch.models.spnet import build_model
@@ -65,8 +66,8 @@ def _dataset(n, seed, grid=CFG.grid):
 
 def _trained_state(seed=0, steps=2):
     torch.manual_seed(seed)
-    model = build_model(CFG.model, generator=torch.Generator().manual_seed(
-        seed))
+    model = build_model(CFG.model, device="cpu",
+                        generator=torch.Generator().manual_seed(seed))
     state = create_train_state(model, onecycle_schedule(1e-3, 10),
                                adam_variant="optax")
     ds = _dataset(8, seed)
@@ -97,7 +98,7 @@ def test_checkpoint_round_trip_with_optimizer_state(tmp_path):
         assert torch.equal(a, b)
 
     # another Adam variant: weights and step only, fresh moments
-    other = create_train_state(build_model(CFG.model),
+    other = create_train_state(build_model(CFG.model, device="cpu"),
                                onecycle_schedule(1e-3, 10),
                                adam_variant="keras")
     other = restore_if_exists(str(tmp_path), other)
