@@ -17,7 +17,8 @@ check raises and the run exits non-zero:
                shape's bound (bytes and operations from the shapes, which
                one binds), % of bound, and the time of the unfused library
                pair (cuDNN depthwise conv + torch.matmul, two calls, no
-               BN/ReLU epilogue: a yardstick the port never calls);
+               BN/ReLU epilogue: a yardstick the port never calls); and
+               the b=16 batch of 34 replayed from a CUDA graph;
   4. slice   - the serving path at full width: SPNet Xception-331 (bf16,
                seeded Keras init, seeded BN running stats) saved as a port
                checkpoint, reloaded through the CLI's loader, 64 seeded
@@ -26,11 +27,21 @@ check raises and the run exits non-zero:
                Checks the kernel's launch count on that run, finite outputs,
                and agreement of the whole model, float32 and bfloat16, between
                the kernels and their plain versions;
-  5. loss    - the fused loss kernels K2 (forward) and K3 (backward) against
-               the plain PyTorch twin at B = 16, 128, 256 x M = 576 and two
-               ragged shapes, 'same' and 'hybrid', float32: loss rel 1e-5,
-               gradient max-abs error <= 1e-5 max|grad|, two forward calls
-               bitwise equal, and the median time of each (CUDA events);
+  5. loss    - the loss kernel (K2 and K3 in one pass) and the backward's
+               scale kernel against the plain PyTorch twin at B = 16, 128,
+               256 x M = 576 and two ragged shapes, 'same' and 'hybrid',
+               float32: loss rel 1e-5 (`spnet_loss_fwd` and the fused
+               forward), gradient max-abs error <= 1e-5 max|grad|
+               (`spnet_loss_bwd`, and the fused forward's gradient x g
+               through the backward), the latter within rel 1e-6 of the
+               former; three forward calls, three replays of a CUDA graph of
+               one call and an eager call after them bitwise equal.  At
+               every shape ('same') the device time per call of the loss,
+               the standalone gradient, the fused forward with its gradient,
+               the scale kernel and the plain versions, from CUDA graphs of
+               100 calls (`graph_ms`); the event time of one call; the host
+               time per eager call; and the launch floor (a one-element
+               `add_` timed as the kernels are);
   6. train   - the training path at full width through `train_network`:
                SPNet Xception-331 bf16, b=128, 512 seeded uint8 train frames
                and 256 val frames resident on the card, augmentation on,
@@ -46,7 +57,8 @@ check raises and the run exits non-zero:
                gradient rel 1e-5);
   7. heads   - the selective-sigmoid kernel K4 (forward and backward)
                against its plain twins at B = 16, 128, 256 x M = 576 and two
-               ragged shapes (rel 1e-6, median time of each); the 'ss' head
+               ragged shapes (rel 1e-6; graph, event and host times as in
+               phase 5); the 'ss' head
                (Xception-331 bf16 + K4) served from a port checkpoint whose
                `experiment.json` selects it: 64 frames at b=16, K4 launches
                = batches + warm-up, K1 34 per batch, noobj lanes in (0, 1),
@@ -61,7 +73,9 @@ check raises and the run exits non-zero:
 
 Every model path runs with all five launch counts set to 0 just before it
 and checks them all just after.  The line before the last is the kernels'
-JSON record; the last line is `{"ok": true, "device": {...}}`.  Exits
+JSON record (for K2-K4 `ms` is the graph-timed device time at 128 x 576,
+beside `call_ms`, `host_us` and `floor_ms`); the last line is
+`{"ok": true, "device": {...}}`.  Exits
 non-zero without a result when no CUDA device is available.  Needs torch
 and numpy, no jax and no PIL.
 """
@@ -92,6 +106,9 @@ MODEL_BF16_RTOL = 5e-3
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
 LOSS_RTOL = 1e-5       # K2 vs twin, K3 vs twin's gradient (summation order)
+# the fused forward's gradient x g vs the standalone gradient kernel: the
+# same formula, scaled by g after (backward) or inside (standalone) it
+FUSED_BWD_RTOL = 1e-6
 STEP_LOSS_RTOL = 1e-6  # float32 train step, kernel loss vs plain twin
 STEP_GRAD_RTOL = 1e-5  # ... its head-weight gradient
 
@@ -127,6 +144,8 @@ def fail(msg: str):
 
 
 def cuda_median_ms(fn, warmup: int = 3, reps: int = 25) -> float:
+    """Median of `reps` CUDA-event timings of one fn() call each: for a
+    small kernel this brackets its wrapper's host time (`call_ms`)."""
     for _ in range(warmup):
         fn()
     ev = [(torch.cuda.Event(enable_timing=True),
@@ -137,6 +156,62 @@ def cuda_median_ms(fn, warmup: int = 3, reps: int = 25) -> float:
         e.record()
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in ev)
+
+
+_capture_stream = None
+
+
+def capture(fn, calls: int = 1):
+    """(graph, outputs of the last call) of `calls` fn() calls captured
+    into one CUDA graph, on one side stream after an eager call there (the
+    loss kernel makes its workspace at a stream's first call)."""
+    global _capture_stream
+    if _capture_stream is None:
+        _capture_stream = torch.cuda.Stream()
+    s = _capture_stream
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        fn()
+    torch.cuda.current_stream().wait_stream(s)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=s):
+        for _ in range(calls):
+            out = fn()
+    return graph, out
+
+
+def graph_ms(fn, calls: int = 100, replays: int = 10) -> float:
+    """Device time of one fn() call: `calls` calls captured into one CUDA
+    graph, one warm-up replay, then `replays` replays between two CUDA
+    events; their time / (calls * replays).  No host work in between."""
+    graph, _ = capture(fn, calls)
+    graph.replay()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / (calls * replays)
+
+
+def host_us(fn, calls: int = 1000) -> float:
+    """Host microseconds per fn() call: `calls` eager calls with no sync
+    in between, then one synchronize, on the host's clock."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return 1e6 * (time.perf_counter() - t0) / calls
+
+
+def launch_floor_ms() -> float:
+    """graph_ms of a one-element add_: the least one launch costs."""
+    x = torch.zeros(1, device=DEVICE)
+    return graph_ms(lambda: x.add_(1.0))
 
 
 def phase_device() -> str:
@@ -231,6 +306,7 @@ def phase_kernel(seed: int, smi: str) -> dict:
     # val sweep): kernel, plain, library pair, bound; bound kinds
     sums = {b: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
                     bytes_ms=0.0) for b in (16, VAL_BATCH)}
+    batch16 = []  # the bf16 b=16 predict batch: (args, kw, uses)
     for dtype, rtol in ((torch.float32, F32_RTOL),
                         (torch.bfloat16, BF16_RTOL)):
         for (b, h, w, c, f), relu, relu_in, uses in cases:
@@ -255,6 +331,8 @@ def phase_kernel(seed: int, smi: str) -> dict:
                          f" ({kind})  {100 * bound / t_k:.1f}% of bound"
                          f"  x{uses}")
                 acc = sums[b]
+                if b == 16:
+                    batch16.append((args, kw, uses))
                 acc["ms"] += uses * t_k
                 acc["plain_ms"] += uses * t_p
                 acc["library_ms"] += uses * t_l
@@ -271,7 +349,18 @@ def phase_kernel(seed: int, smi: str) -> dict:
               f"pair {acc['library_ms']:.4f} ms, bound {acc['bound_ms']:.4f} "
               f"ms ({100 * acc['bound_ms'] / acc['ms']:.1f}% of bound)  "
               f"[{smi}]")
-    res = dict(sums[16], max_abs_err=max_err)
+
+    def batch():
+        for args, kw, uses in batch16:
+            for _ in range(uses):
+                sepconv_infer(*args, **kw)
+
+    res = dict(sums[16], max_abs_err=max_err,
+               graph_ms=graph_ms(batch, calls=10, replays=5))
+    print(f"[kernel] one bf16 batch of b=16 (34 sepconvs) replayed from a CUDA "
+          f"graph of 10 batches: {res['graph_ms']:.4f} ms of device time "
+          f"(the sum of single-call event medians above: {res['ms']:.4f} "
+          f"ms)  [{smi}]")
     res["bound_by"] = ("bytes" if 2 * res.pop("bytes_ms") >= res["bound_ms"]
                        else "operations")
     return res
@@ -460,10 +549,32 @@ def _loss_inputs(b, m, gen):
     return yt, yp
 
 
-def phase_loss(seed: int, smi: str) -> dict:
-    from spnet_tpu_torch.ops.losses import spnet_loss, spnet_loss_bwd, \
-        spnet_loss_fwd
+def _timings(fn) -> dict:
+    """ms: device time per call from a CUDA graph of 100 calls; call_ms:
+    the median event time of single calls; host_us: host time per eager
+    call."""
+    return dict(ms=graph_ms(fn), call_ms=cuda_median_ms(fn),
+                host_us=host_us(fn))
+
+
+def _timing_line(tag: str, t: dict) -> str:
+    """One line of `_timings` results (and plain versions' `ms`)."""
+    parts = (("device ms per call (graph of 100)", "ms", ".5f"),
+             ("one call, event ms", "call_ms", ".4f"),
+             ("host us per call", "host_us", ".2f"))
+    return f"[{tag}]   " + "; ".join(
+        title + ":" + "".join(f" {k} {v[key]:{fmt}}" for k, v in t.items()
+                              if key in v) for title, key, fmt in parts)
+
+
+def phase_loss(seed: int, smi: str, floor_ms: float) -> dict:
+    """The loss kernel (K2/K3 in one pass) and the backward's scale kernel
+    against the twin, eagerly and from CUDA graphs, with their times at
+    every shape ('same')."""
     from spnet_tpu_torch.config import LossWeights
+    from spnet_tpu_torch.ops.losses import spnet_loss, spnet_loss_bwd, \
+        spnet_loss_fused, spnet_loss_fwd, spnet_loss_grad_scale, \
+        spnet_loss_grad_torch
 
     w = LossWeights()
     gen = torch.Generator(device=DEVICE).manual_seed(seed)
@@ -472,39 +583,73 @@ def phase_loss(seed: int, smi: str) -> dict:
     for loss_type in ("same", "hybrid"):
         for b, m in LOSS_SHAPES:
             yt, yp = _loss_inputs(b, m, gen)
-            out = spnet_loss_fwd(yt, yp, w, loss_type)
-            again = spnet_loss_fwd(yt, yp, w, loss_type)
+            outs = [spnet_loss_fwd(yt, yp, w, loss_type) for _ in range(3)]
             dyp = spnet_loss_bwd(yt, yp, g, w, loss_type)
-            torch.cuda.synchronize()
             p = yp.clone().requires_grad_(True)
-            ref = spnet_loss(yt, p, w, loss_type)
-            (ref_grad,) = torch.autograd.grad(ref, p, g, retain_graph=True)
-            f_err = abs(float(out) - float(ref.detach()))
-            f_rel = f_err / max(abs(float(ref.detach())), 1e-30)
+            fused = spnet_loss_fused(yt, p, w, loss_type)
+            kept = fused.grad_fn.saved_tensors[0]  # freed by the backward
+            (f_grad,) = torch.autograd.grad(fused, p, g)
+            graph, static = capture(
+                lambda: spnet_loss_fwd(yt, yp, w, loss_type))
+            replays = []
+            for _ in range(3):
+                graph.replay()
+                replays.append(static.clone())
+            del graph
+            after = spnet_loss_fwd(yt, yp, w, loss_type)
+            torch.cuda.synchronize()
+            q = yp.clone().requires_grad_(True)
+            ref = spnet_loss(yt, q, w, loss_type)
+            (ref_grad,) = torch.autograd.grad(ref, q, g)
+            ref = float(ref.detach())
+            scale = ref_grad.abs().max().item()
+            f_err = abs(float(outs[0]) - ref)
+            f_rel = f_err / max(abs(ref), 1e-30)
+            fused_rel = abs(float(fused) - ref) / max(abs(ref), 1e-30)
             b_err = (dyp - ref_grad).abs().max().item()
-            b_rel = b_err / max(ref_grad.abs().max().item(), 1e-30)
-            t_f = cuda_median_ms(lambda: spnet_loss_fwd(yt, yp, w, loss_type))
-            t_fp = cuda_median_ms(lambda: spnet_loss(yt, yp, w, loss_type))
-            t_b = cuda_median_ms(
-                lambda: spnet_loss_bwd(yt, yp, g, w, loss_type))
-            t_bp = cuda_median_ms(lambda: torch.autograd.grad(
-                ref, p, g, retain_graph=True))
-            print(f"[loss] {loss_type:6s} B={b} M={m}  fwd err {f_err:.3e} "
-                  f"(rel {f_rel:.2e}, tol {LOSS_RTOL})  bwd max_abs_err "
-                  f"{b_err:.3e} (rel {b_rel:.2e}, tol {LOSS_RTOL})  fwd "
-                  f"kernel {t_f:.4f} ms plain {t_fp:.4f} ms  bwd kernel "
-                  f"{t_b:.4f} ms plain {t_bp:.4f} ms  [{smi}]")
-            if not torch.equal(out, again):
+            b_rel = b_err / max(scale, 1e-30)
+            fg_rel = (f_grad - ref_grad).abs().max().item() / max(scale,
+                                                                  1e-30)
+            fg_vs_bwd = ((f_grad - dyp).abs().max()
+                         / dyp.abs().max().clamp_min(1e-30)).item()
+            line = (f"[loss] {loss_type:6s} B={b} M={m}  fwd err {f_err:.3e} "
+                    f"(rel {f_rel:.2e}, tol {LOSS_RTOL})  bwd max_abs_err "
+                    f"{b_err:.3e} (rel {b_rel:.2e}, tol {LOSS_RTOL})  fused "
+                    f"fwd rel {fused_rel:.2e}, fused grad x g rel "
+                    f"{fg_rel:.2e} vs twin, {fg_vs_bwd:.2e} vs spnet_loss_bwd "
+                    f"(tol {FUSED_BWD_RTOL}); 3 calls, 3 graph replays and a "
+                    "call after them bitwise equal")
+            if not all(torch.equal(o, outs[0]) for o in outs + replays +
+                       [after]):
                 fail(f"loss forward {loss_type} {(b, m)} is not bitwise "
-                     f"reproducible: {float(out)!r} vs {float(again)!r}")
-            if not (f_rel <= LOSS_RTOL and b_rel <= LOSS_RTOL):
+                     f"reproducible: calls {[float(o) for o in outs]}, "
+                     f"replays {[float(o) for o in replays]}, after "
+                     f"{float(after)!r}")
+            if not (f_rel <= LOSS_RTOL and b_rel <= LOSS_RTOL and
+                    fused_rel <= LOSS_RTOL and fg_rel <= LOSS_RTOL and
+                    fg_vs_bwd <= FUSED_BWD_RTOL):
                 fail(f"loss kernels {loss_type} {(b, m)}: forward rel "
-                     f"{f_rel}, backward rel {b_rel} > {LOSS_RTOL}")
+                     f"{f_rel}, backward rel {b_rel}, fused forward rel "
+                     f"{fused_rel}, fused gradient rel {fg_rel} (twin) / "
+                     f"{fg_vs_bwd} (spnet_loss_bwd)")
             res["fwd_err"] = max(res["fwd_err"], f_err)
             res["bwd_err"] = max(res["bwd_err"], b_err)
-            if (b, loss_type) == (TRAIN_BATCH, "same"):  # the train path's
-                res.update(fwd_ms=t_f, fwd_plain_ms=t_fp, bwd_ms=t_b,
-                           bwd_plain_ms=t_bp)
+            if loss_type == "same":
+                t = {
+                    "fwd": _timings(lambda: spnet_loss_fwd(yt, yp, w)),
+                    "bwd": _timings(lambda: spnet_loss_bwd(yt, yp, g, w)),
+                    "fused": _timings(lambda: spnet_loss_fused(yt, p, w)),
+                    "scale": _timings(lambda: spnet_loss_grad_scale(kept, g)),
+                    "fwd_plain": dict(ms=graph_ms(
+                        lambda: spnet_loss(yt, yp, w))),
+                    "bwd_plain": dict(ms=graph_ms(
+                        lambda: spnet_loss_grad_torch(yt, yp, w) * g)),
+                }
+                line += (f"\n{_timing_line('loss', t)}; launch floor "
+                         f"{floor_ms:.5f} ms")
+                if b == TRAIN_BATCH:  # the train path's
+                    res.update(t)
+            print(f"{line}  [{smi}]")
     return res
 
 
@@ -703,23 +848,24 @@ def phase_k4(seed: int, smi: str) -> dict:
         b_err = (dx - ref_dx).abs().max().item()
         f_rel = f_err / ref.abs().max().item()
         b_rel = b_err / ref_dx.abs().max().item()
-        t_f = cuda_median_ms(lambda: selective_sigmoid_fwd(x))
-        t_fp = cuda_median_ms(lambda: selective_sigmoid_torch(x))
-        t_b = cuda_median_ms(lambda: selective_sigmoid_bwd(y, g))
-        t_bp = cuda_median_ms(lambda: selective_sigmoid_grad_torch(y, g))
         print(f"[k4] B={b} M={m}  fwd max_abs_err {f_err:.3e} (rel "
               f"{f_rel:.2e}, tol {SIGMOID_RTOL})  bwd max_abs_err "
-              f"{b_err:.3e} (rel {b_rel:.2e}, tol {SIGMOID_RTOL})  fwd "
-              f"kernel {t_f:.4f} ms plain {t_fp:.4f} ms  bwd kernel "
-              f"{t_b:.4f} ms plain {t_bp:.4f} ms  [{smi}]")
+              f"{b_err:.3e} (rel {b_rel:.2e}, tol {SIGMOID_RTOL})")
         if not (f_rel <= SIGMOID_RTOL and b_rel <= SIGMOID_RTOL):
             fail(f"selective sigmoid {(b, m)}: forward rel {f_rel}, "
                  f"backward rel {b_rel} > {SIGMOID_RTOL}")
         res["fwd_err"] = max(res["fwd_err"], f_err)
         res["bwd_err"] = max(res["bwd_err"], b_err)
+        t = {
+            "fwd": _timings(lambda: selective_sigmoid_fwd(x)),
+            "bwd": _timings(lambda: selective_sigmoid_bwd(y, g)),
+            "fwd_plain": dict(ms=graph_ms(lambda: selective_sigmoid_torch(x))),
+            "bwd_plain": dict(ms=graph_ms(
+                lambda: selective_sigmoid_grad_torch(y, g))),
+        }
+        print(f"{_timing_line('k4', t)}  [{smi}]")
         if b == TRAIN_BATCH and m == 576:
-            res.update(fwd_ms=t_f, fwd_plain_ms=t_fp, bwd_ms=t_b,
-                       bwd_plain_ms=t_bp)
+            res.update(t)
     return res
 
 
@@ -789,19 +935,34 @@ def main(argv=None):
     phase_build()
     kern = phase_kernel(args.seed, smi)
     launches = phase_slice(args.seed, smi)
-    loss = phase_loss(args.seed, smi)
+    floor_ms = launch_floor_ms()
+    loss = phase_loss(args.seed, smi, floor_ms)
     train = phase_train(args.seed, smi)
     k4 = phase_k4(args.seed, smi)
     heads = phase_heads(args.seed, smi)
     print(f"[done] {time.perf_counter() - t0:.1f} s after the device phase; "
           f"train {train['img_per_sec']:.1f} images/s at b={TRAIN_BATCH} "
           f"[{smi}]")
-    loss_src = "spnet_tpu_torch/csrc/loss.cu"
-    k4_src = "spnet_tpu_torch/csrc/activations.cu"
     # K2-K4 at their timed shapes (TRAIN_BATCH x 576 float32): each input
     # read once, each output written once; their few operations an element
-    # are far below the bytes' time
+    # are far below the bytes' time.  ms: device time per call from a CUDA
+    # graph; call_ms: one call between two events; host_us: host time per
+    # eager call; floor_ms: a one-element add_ timed as ms is.
     n = TRAIN_BATCH * 576 * 4
+
+    def small(name, source, replaces, launches, err, t, plain, nbytes,
+              **extra):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": err, "ms": t["ms"], "plain_ms": plain["ms"],
+                "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S,
+                "bound_by": "bytes", "library_ms": None,
+                "call_ms": t["call_ms"], "host_us": t["host_us"],
+                "floor_ms": floor_ms, **extra}
+
+    loss_src = "spnet_tpu_torch/csrc/loss.cu"
+    k4_src = "spnet_tpu_torch/csrc/activations.cu"
+    k4_at = "spnet_tpu/ops/activations.py:36"
     print(json.dumps({"kernels": [{
         "name": "sepconv_infer",
         "route": "cuda",
@@ -814,55 +975,27 @@ def main(argv=None):
         "bound_ms": kern["bound_ms"],
         "bound_by": kern["bound_by"],
         "library_ms": kern["library_ms"],
-    }, {
-        "name": "spnet_loss_fwd",
-        "route": "cuda",
-        "source": loss_src,
-        "replaces": "spnet_tpu/ops/losses.py:135",
-        "launches": train["fwd_launches"],
-        "max_abs_err": loss["fwd_err"],
-        "ms": loss["fwd_ms"],
-        "plain_ms": loss["fwd_plain_ms"],
-        "bound_ms": 1e3 * (2 * n + 4) / HBM_BYTES_PER_S,
-        "bound_by": "bytes",
-        "library_ms": None,
-    }, {
-        "name": "spnet_loss_bwd",
-        "route": "cuda",
-        "source": loss_src,
-        "replaces": "spnet_tpu/ops/losses.py:176",
-        "launches": train["bwd_launches"],
-        "max_abs_err": loss["bwd_err"],
-        "ms": loss["bwd_ms"],
-        "plain_ms": loss["bwd_plain_ms"],
-        "bound_ms": 1e3 * (3 * n + 4) / HBM_BYTES_PER_S,
-        "bound_by": "bytes",
-        "library_ms": None,
-    }, {
-        "name": "selective_sigmoid_fwd",
-        "route": "cuda",
-        "source": k4_src,
-        "replaces": "spnet_tpu/ops/activations.py:36",
-        "launches": heads["ss"]["predict_counts"]["selective_sigmoid_fwd"],
-        "max_abs_err": k4["fwd_err"],
-        "ms": k4["fwd_ms"],
-        "plain_ms": k4["fwd_plain_ms"],
-        "bound_ms": 1e3 * 2 * n / HBM_BYTES_PER_S,
-        "bound_by": "bytes",
-        "library_ms": None,
-    }, {
-        "name": "selective_sigmoid_bwd",
-        "route": "cuda",
-        "source": k4_src,
-        "replaces": "spnet_tpu/ops/activations.py:36",
-        "launches": heads["ss"]["train_counts"]["selective_sigmoid_bwd"],
-        "max_abs_err": k4["bwd_err"],
-        "ms": k4["bwd_ms"],
-        "plain_ms": k4["bwd_plain_ms"],
-        "bound_ms": 1e3 * 3 * n / HBM_BYTES_PER_S,
-        "bound_by": "bytes",
-        "library_ms": None,
-    }]}))
+        "graph_ms": kern["graph_ms"],  # the b=16 batch from a CUDA graph
+    },
+        # the loss alone; the train step's forward also writes the
+        # gradient (fused_ms, fused_bound_ms)
+        small("spnet_loss_fwd", loss_src, "spnet_tpu/ops/losses.py:135",
+              train["fwd_launches"], loss["fwd_err"], loss["fwd"],
+              loss["fwd_plain"], 2 * n + 4, fused_ms=loss["fused"]["ms"],
+              fused_bound_ms=1e3 * (3 * n + 4) / HBM_BYTES_PER_S),
+        # g * dloss/dy_pred from y_true, y_pred and g; the train step's
+        # backward scales the kept gradient (scale_ms, scale_bound_ms)
+        small("spnet_loss_bwd", loss_src, "spnet_tpu/ops/losses.py:176",
+              train["bwd_launches"], loss["bwd_err"], loss["bwd"],
+              loss["bwd_plain"], 3 * n + 4, scale_ms=loss["scale"]["ms"],
+              scale_bound_ms=1e3 * (2 * n + 4) / HBM_BYTES_PER_S),
+        small("selective_sigmoid_fwd", k4_src, k4_at,
+              heads["ss"]["predict_counts"]["selective_sigmoid_fwd"],
+              k4["fwd_err"], k4["fwd"], k4["fwd_plain"], 2 * n),
+        small("selective_sigmoid_bwd", k4_src, k4_at,
+              heads["ss"]["train_counts"]["selective_sigmoid_bwd"],
+              k4["bwd_err"], k4["bwd"], k4["bwd_plain"], 3 * n),
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -99,13 +99,11 @@ def load_library() -> ctypes.CDLL:
     lib.spnet_sepconv_wgmma_smem.argtypes = [i, i, i]
     lib.spnet_sepconv_wgmma_smem.restype = i
     ll, f = ctypes.c_longlong, ctypes.c_float
-    lib.spnet_loss_fwd_partials.argtypes = [ll]
-    lib.spnet_loss_fwd_partials.restype = i
-    lib.spnet_loss_fwd.argtypes = [p, p, p, i, p, ll, f, f, f, f, f, f,
-                                   i, p]
-    lib.spnet_loss_fwd.restype = i
-    lib.spnet_loss_bwd.argtypes = [p, p, p, p, ll, f, f, f, f, f, f, i, p]
-    lib.spnet_loss_bwd.restype = i
+    lib.spnet_loss.argtypes = [p, p, p, p, p, p, i, p, ll, f, f, f, f, f,
+                               f, i, p]
+    lib.spnet_loss.restype = i
+    lib.spnet_loss_grad_scale.argtypes = [p, p, p, ll, p]
+    lib.spnet_loss_grad_scale.restype = i
     lib.spnet_selective_sigmoid_fwd.argtypes = [p, p, ll, p]
     lib.spnet_selective_sigmoid_fwd.restype = i
     lib.spnet_selective_sigmoid_bwd.argtypes = [p, p, p, ll, p]

@@ -1,9 +1,14 @@
 """The port's loss (`spnet_tpu_torch/ops/losses.py`) against the JAX
 package: the plain twin against `loss_components` / `spnet_loss`, its
-gradient and the fused autograd function's CPU path against `jax.grad` of
-`spnet_loss_pallas` (interpret mode on the CPU, as tests/test_losses.py
-runs it), and what the wrappers refuse.  The kernels themselves run only
-on the card (tests/test_torch_losses_cuda.py)."""
+gradient, the closed-form gradient `spnet_loss_grad_torch` and the fused
+autograd function's CPU path against `jax.grad` of `spnet_loss_pallas`
+(interpret mode on the CPU, as tests/test_losses.py runs it), what the
+fused function keeps for its backward, the kernel's block count, and what
+the wrappers refuse.  The kernels themselves run only on the card
+(tests/test_torch_losses_cuda.py)."""
+
+import re
+from pathlib import Path
 
 import jax
 import numpy as np
@@ -16,12 +21,15 @@ from spnet_tpu.ops.losses import spnet_loss as j_loss
 from spnet_tpu.ops.losses import spnet_loss_pallas
 from spnet_tpu_torch.config import GridSpec, LossWeights
 from spnet_tpu_torch.grid import normalize
+from spnet_tpu_torch.ops import losses
 from spnet_tpu_torch.ops.losses import (
     loss_components,
+    loss_blocks,
     spnet_loss,
     spnet_loss_bwd,
     spnet_loss_fused,
     spnet_loss_fwd,
+    spnet_loss_grad_torch,
 )
 
 W, JW = LossWeights(), JLossWeights()
@@ -122,3 +130,100 @@ def test_cpu_calls_launch_nothing():
     spnet_loss_bwd(yt, yp, torch.ones(()))
     assert (spnet_loss_fwd.launches, spnet_loss_bwd.launches) == (f0, b0)
     assert p.grad is not None and torch.isfinite(p.grad).all()
+
+
+def _rand_any(seed, b, m):
+    """Any (B, M): normal targets with a 0/1 noobj flag on every slot (80 %
+    empty) and predictions scattered around them, float32."""
+    rng = np.random.default_rng(seed)
+    yt = rng.normal(0, 1, (b, m)).astype(np.float32)
+    yt.reshape(b, -1, 8)[..., 6] = rng.random((b, m // 8)) < 0.8
+    yp = (yt + rng.normal(0, 0.3, (b, m))).astype(np.float32)
+    return yt, yp
+
+
+@pytest.mark.parametrize("loss_type", LOSS_TYPES)
+@pytest.mark.parametrize("shape", [(5, 576), (3, 8 * 37), (2, 8 * 250)])
+def test_grad_torch_matches_jax_pallas(shape, loss_type):
+    """The closed-form gradient against jax.grad of the Pallas loss
+    (custom VJP, interpret mode), rtol 1e-4 / atol 1e-6 as in
+    tests/test_losses.py, at the train width and two ragged ones."""
+    yt, yp = _rand_any(sum(shape), *shape)
+    g_ref = np.asarray(jax.jit(jax.grad(
+        lambda p, t: spnet_loss_pallas(t, p, JW, loss_type)))(yp, yt))
+    got = spnet_loss_grad_torch(torch.from_numpy(yt), torch.from_numpy(yp),
+                                W, loss_type)
+    assert got.shape == shape and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), g_ref, rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.parametrize("loss_type", LOSS_TYPES)
+def test_fused_cpu_forward_is_the_twin(loss_type):
+    t, p = (torch.from_numpy(a) for a in _rand_any(5, 3, 8 * 37))
+    p.requires_grad_(True)
+    loss = spnet_loss_fused(t, p, W, loss_type)
+    assert torch.equal(loss.detach(), spnet_loss(t, p.detach(), W,
+                                                 loss_type))
+
+
+@pytest.mark.parametrize("loss_type", LOSS_TYPES)
+def test_fused_backward_scales_the_kept_gradient(loss_type):
+    """The forward keeps the closed-form gradient; the backward is that
+    times g, exactly."""
+    t, p = (torch.from_numpy(a) for a in _rand_any(6, 4, 576))
+    p.requires_grad_(True)
+    loss = spnet_loss_fused(t, p, W, loss_type)
+    kept = spnet_loss_grad_torch(t, p.detach(), W, loss_type)
+    assert torch.equal(loss.grad_fn.saved_tensors[0], kept)
+    (grad,) = torch.autograd.grad(loss, p, torch.tensor(3.0))
+    assert torch.equal(grad, kept * 3.0)
+
+
+@pytest.mark.parametrize("loss_type", LOSS_TYPES)
+def test_fused_retain_graph_gives_the_same_gradient_twice(loss_type):
+    t, p = (torch.from_numpy(a) for a in _rand_any(7, 2, 8 * 250))
+    p.requires_grad_(True)
+    loss = 2.0 * spnet_loss_fused(t, p, W, loss_type)
+    (first,) = torch.autograd.grad(loss, p, retain_graph=True)
+    (second,) = torch.autograd.grad(loss, p)
+    assert torch.equal(first, second)
+    np.testing.assert_allclose(
+        first.numpy(), 2.0 * spnet_loss_grad_torch(t, p.detach(), W,
+                                                   loss_type).numpy(),
+        rtol=1e-6)
+
+
+@pytest.mark.parametrize("mode", ["no_grad", "inference_mode",
+                                  "no_requires_grad", "requires_grad"])
+def test_fused_keeps_a_gradient_only_when_one_is_needed(mode, monkeypatch):
+    """The forward computes (and keeps) the gradient only when y_pred
+    needs one and autograd records."""
+    calls = []
+    grad_torch = losses.spnet_loss_grad_torch
+    monkeypatch.setattr(losses, "spnet_loss_grad_torch",
+                        lambda *a: calls.append(1) or grad_torch(*a))
+    t, p = (torch.from_numpy(a) for a in _rand_any(8, 2, 576))
+    p.requires_grad_(mode != "no_requires_grad")
+    ctx = {"no_grad": torch.no_grad,
+           "inference_mode": torch.inference_mode}.get(mode)
+    if ctx is None:
+        loss = spnet_loss_fused(t, p)
+    else:
+        with ctx():
+            loss = spnet_loss_fused(t, p)
+    assert len(calls) == (mode == "requires_grad")
+    assert (loss.grad_fn is not None) == (mode == "requires_grad")
+    assert float(loss.detach()) == float(spnet_loss(t, p.detach()))
+
+
+@pytest.mark.parametrize("n_slots", [1, 255, 256, 257, 37 * 3, 250 * 5,
+                                     72 * 128])
+def test_block_count_is_the_kernels_rule(n_slots):
+    """The wrapper sizes the loss's partials as the kernel launches its
+    blocks: ceil(n_slots / THREADS), THREADS read from csrc/loss.cu."""
+    src = (Path(losses.__file__).parent.parent / "csrc" / "loss.cu") \
+        .read_text()
+    (threads,) = re.findall(r"constexpr int THREADS = (\d+);", src)
+    assert losses.LOSS_THREADS == int(threads)
+    assert loss_blocks(n_slots) == (n_slots + int(threads) - 1) \
+        // int(threads)

@@ -1,5 +1,6 @@
-"""The fused loss kernels K2 (forward) and K3 (backward) against the plain
-PyTorch twin, on the card.  No jax here; run this file on the card without
+"""The loss kernel (K2 and K3 in one pass) and the backward's scale kernel
+against the plain PyTorch twin, on the card, eagerly and replayed from a
+CUDA graph.  No jax here; run this file on the card without
 the suite's conftest (which sets JAX up):
 
     python -m pytest --noconftest tests/test_torch_losses_cuda.py -q
@@ -15,6 +16,7 @@ from spnet_tpu_torch.ops.losses import (
     spnet_loss_bwd,
     spnet_loss_fused,
     spnet_loss_fwd,
+    spnet_loss_grad_torch,
 )
 
 W = LossWeights()
@@ -82,3 +84,76 @@ def test_fused_function_launches_both_kernels(cuda):
     assert (spnet_loss_fwd.launches, spnet_loss_bwd.launches) == \
         (f0 + 1, b0 + 1)
     assert torch.isfinite(p.grad).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("loss_type", ["same", "hybrid"])
+@pytest.mark.parametrize("shape,offset", [
+    ((128, 576), 0),     # the training batch
+    ((3, 8 * 37), 0),    # ragged last block
+    ((5, 8 * 250), 1),   # ragged, and misaligned: the scalar path
+])
+def test_fused_function_matches_twin(cuda, shape, offset, loss_type):
+    """One launch forward (loss and gradient), one backward (the scale):
+    the loss rel 1e-5 of the twin's, the gradient within 1e-5 max|grad| of
+    the twin's autograd gradient and rel 1e-6 of `spnet_loss_bwd`."""
+    yt, yp = _args(*shape, cuda, offset)
+    p = yp.detach().clone().requires_grad_(True)
+    g = torch.full((), 0.5, device=cuda)
+    f0, b0 = spnet_loss_fwd.launches, spnet_loss_bwd.launches
+    loss = spnet_loss_fused(yt, p, W, loss_type)
+    (grad,) = torch.autograd.grad(loss, p, g)
+    torch.cuda.synchronize()
+    assert (spnet_loss_fwd.launches, spnet_loss_bwd.launches) == \
+        (f0 + 1, b0 + 1)
+    q = yp.detach().clone().requires_grad_(True)
+    ref = spnet_loss(yt, q, W, loss_type)
+    (ref_grad,) = torch.autograd.grad(ref, q, g)
+    assert abs(float(loss) - float(ref)) <= 1e-5 * abs(float(ref))
+    assert (grad - ref_grad).abs().max() <= 1e-5 * ref_grad.abs().max()
+    alone = spnet_loss_bwd(yt, yp, g, W, loss_type)
+    assert (grad - alone).abs().max() <= 1e-6 * alone.abs().max()
+    closed = spnet_loss_grad_torch(yt, yp, W, loss_type) * g
+    assert (grad - closed).abs().max() <= 1e-5 * closed.abs().max()
+
+
+@pytest.mark.cuda
+def test_graph_replays_are_bitwise_eager(cuda):
+    """The forward (loss and gradient) and the backward captured into one
+    CUDA graph after an eager call on the capturing stream; three replays
+    give the eager loss and gradient bit for bit, and an eager call after
+    them is still right (the kernel left its counter at 0)."""
+    yt, yp = _args(128, 576, cuda)
+    p = yp.detach().clone().requires_grad_(True)
+
+    def step():
+        loss = spnet_loss_fused(yt, p)
+        return loss, torch.autograd.grad(loss, p)[0]
+
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        eager = step()
+    torch.cuda.current_stream().wait_stream(s)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=s):
+        static = step()
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(static[0], eager[0])
+        assert torch.equal(static[1], eager[1])
+    assert torch.equal(step()[0], eager[0])
+    assert torch.equal(spnet_loss_fwd(yt, yp), eager[0])
+
+
+@pytest.mark.cuda
+def test_first_call_under_capture_raises(cuda):
+    """The loss's workspace is made at a stream's first call, never inside
+    a capture: a first call on a fresh stream under capture raises."""
+    yt, yp = _args(16, 576, cuda)
+    s = torch.cuda.Stream()
+    graph = torch.cuda.CUDAGraph()
+    with pytest.raises(RuntimeError, match="eagerly"):
+        with torch.cuda.graph(graph, stream=s):
+            spnet_loss_fwd(yt, yp)
