@@ -41,7 +41,19 @@ check raises and the run exits non-zero:
                the scale kernel and the plain versions, from CUDA graphs of
                100 calls (`graph_ms`); the event time of one call; the host
                time per eager call; and the launch floor (a one-element
-               `add_` timed as the kernels are);
+               `add_` timed as the kernels are).  Then the loss kernel's
+               'ss' variant (the selective sigmoid K4 in the same pass, on
+               the pre-activation z = 4 randn) at the same 5 shapes x 2
+               loss types: the loss bitwise equal to K4's forward then the
+               loss kernel, and rel 1e-5 of the twins' composition; the
+               gradient with respect to z within rel 1e-6 of max|grad| of
+               K4's backward of the loss kernel's gradient x g, for g = 1
+               (bitwise or not, printed) and 0.75, and 1e-5 of the twins';
+               3 calls, 3 graph replays and a call after them bitwise
+               equal; at every shape ('same') its times as above, and the
+               'ss' step's loss from one graph, the fused route (2
+               launches) beside the composition (K4, the loss kernel, the
+               scale, K4's backward: 4 launches);
   6. train   - the training path at full width through `train_network`:
                SPNet Xception-331 bf16, b=128, 512 seeded uint8 train frames
                and 256 val frames resident on the card, augmentation on,
@@ -64,17 +76,24 @@ check raises and the run exits non-zero:
                = batches + warm-up, K1 34 per batch, noobj lanes in (0, 1),
                and the f32 model with the kernels against the plain versions
                (rel 1e-4); the 'ss' head trained through `train_network`
-               (b=128, 2 epochs of 4 steps; K4's backward, K2 and K3 launch
-               once per step) and one f32 train step with K4 against the
-               twin (loss rel 1e-6, head-weight gradient rel 1e-5); then the
+               (b=128, 2 epochs of 4 steps; the loss kernel's 'ss' variant
+               and the scale launch once per step, K4 only in the val
+               sweeps) and one f32 train step on the fused route against
+               the plain model with the kernel loss, under 'same' and
+               'hybrid' (loss rel 1e-6, head-weight gradient rel 1e-5), and
+               one with fused=False, which drives K4's forward and backward
+               on the model (launch counts checked), against the twins;
+               then the
                compound head (Xception-331) and MobileNet-331, bf16, each
                served (b=16) and trained (b=128, 2 epochs) the same way,
                with their frames/s and train images/s.
 
-Every model path runs with all five launch counts set to 0 just before it
-and checks them all just after.  The line before the last is the kernels'
-JSON record (for K2-K4 `ms` is the graph-timed device time at 128 x 576,
-beside `call_ms`, `host_us` and `floor_ms`); the last line is
+Every model path runs with all five launch counts (and the loss kernel's
+count of 'ss' launches) set to 0 just before it and checks them all just
+after.  The line before the last is the kernels' JSON record (for K2-K4
+`ms` is the graph-timed device time at 128 x 576, beside `call_ms`,
+`host_us` and `floor_ms`; K2 adds `ss_fused_ms` and `ss_launches`); the
+last line is
 `{"ok": true, "device": {...}}`.  Exits
 non-zero without a result when no CUDA device is available.  Needs torch
 and numpy, no jax and no PIL.
@@ -135,6 +154,9 @@ VAL_BATCH = 256
 # shapes that leave a ragged last block of 256 slots
 LOSS_SHAPES = [(16, 576), (128, 576), (256, 576), (3, 8 * 37), (5, 8 * 250)]
 SIGMOID_RTOL = 1e-6  # K4 vs twin: the same float32 formula, expf vs exp
+# the 'ss' variant's gradient x g vs K4's backward of the loss kernel's: g
+# multiplies after the sigmoid's factor in one, before it in the other
+SS_GRAD_RTOL = 1e-6
 TRAIN_BATCH, TRAIN_FRAMES, VAL_FRAMES = 128, 512, 256
 DEVICE = "cuda"
 
@@ -403,27 +425,35 @@ def _wrappers() -> dict:
         selective_sigmoid_fwd, selective_sigmoid_bwd)}
 
 
+SS_COUNT = "spnet_loss_fwd[ss]"  # the loss kernel's launches with K4 in it
+
+
 def _zero_counts():
     for f in _wrappers().values():
         f.launches = 0
+    _wrappers()["spnet_loss_fwd"].ss_launches = 0
 
 
 def _counts() -> dict:
-    return {name: f.launches for name, f in _wrappers().items()}
+    counts = {name: f.launches for name, f in _wrappers().items()}
+    counts[SS_COUNT] = _wrappers()["spnet_loss_fwd"].ss_launches
+    return counts
 
 
 def _want_counts(model_cfg, predict_batches=0, train_steps=0) -> dict:
     """Launches of each kernel for `predict_batches` eval-mode batches and
     `train_steps` train steps of a model of `model_cfg`: K1 carries
     Xception's 34 separable convs in eval mode only, K2/K3 the train loss,
-    K4 the 'ss' head in both modes (its backward in train steps)."""
+    K4 the 'ss' head in eval mode; in a train step the loss kernel's 'ss'
+    variant carries K4 (forward and backward) in its own pass."""
     sep = SEPCONVS_PER_BATCH if model_cfg.backbone == "Xception" else 0
     ss = int(model_cfg.selective_sigmoid)
     return {"sepconv_infer": sep * predict_batches,
             "spnet_loss_fwd": train_steps,
             "spnet_loss_bwd": train_steps,
-            "selective_sigmoid_fwd": ss * (predict_batches + train_steps),
-            "selective_sigmoid_bwd": ss * train_steps}
+            "selective_sigmoid_fwd": ss * predict_batches,
+            "selective_sigmoid_bwd": 0,
+            SS_COUNT: ss * train_steps}
 
 
 def _serve(cfg, seed: int, smi: str, tag: str, n_frames: int = 64,
@@ -653,6 +683,118 @@ def phase_loss(seed: int, smi: str, floor_ms: float) -> dict:
     return res
 
 
+def phase_loss_ss(seed: int, smi: str, floor_ms: float) -> dict:
+    """The loss kernel's 'ss' variant (K4 in the loss's pass) against K4
+    then the loss kernel, and against the twins, eagerly and from CUDA
+    graphs, with its times at every shape ('same')."""
+    from spnet_tpu_torch.config import LossWeights
+    from spnet_tpu_torch.ops.activations import SelectiveSigmoid, \
+        selective_sigmoid_bwd, selective_sigmoid_fwd, \
+        selective_sigmoid_grad_torch, selective_sigmoid_torch
+    from spnet_tpu_torch.ops.losses import spnet_loss, spnet_loss_bwd, \
+        spnet_loss_fused, spnet_loss_fwd, spnet_loss_grad_torch
+
+    w = LossWeights()
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 1)
+    res = dict(err=0.0)
+    for loss_type in ("same", "hybrid"):
+        for b, m in LOSS_SHAPES:
+            yt, _ = _loss_inputs(b, m, gen)
+            z = 4 * torch.randn(b, m, device=DEVICE, generator=gen)
+
+            def ss_loss():
+                return spnet_loss_fused(yt, z, w, loss_type,
+                                        selective_sigmoid=True)
+
+            def ss_grad(p, g):
+                """dloss/dz of the fused route at the leaf p (a copy of z).
+                Each caller has its own leaf and keeps no loss alive: a
+                leaf's gradient accumulator stays on the stream it was
+                made on, which a graph captured on another stream must not
+                wait for."""
+                loss = spnet_loss_fused(yt, p, w, loss_type,
+                                        selective_sigmoid=True)
+                return torch.autograd.grad(loss, p, g)[0]
+
+            def leaf():
+                return z.clone().requires_grad_(True)
+
+            outs = [ss_loss() for _ in range(3)]
+            graph, static = capture(ss_loss)
+            replays = []
+            for _ in range(3):
+                graph.replay()
+                replays.append(static.clone())
+            del graph
+            after = ss_loss()
+            s = selective_sigmoid_fwd(z)
+            k4_k2 = spnet_loss_fwd(yt, s, w, loss_type)
+            s_twin = selective_sigmoid_torch(z)
+            twin = spnet_loss(yt, s_twin, w, loss_type)
+            twin_grad = selective_sigmoid_grad_torch(
+                s_twin, spnet_loss_grad_torch(yt, s_twin, w, loss_type))
+            g_rel, bitwise = {}, None
+            for gv in (1.0, 0.75):
+                g = torch.full((), gv, device=DEVICE)
+                grad = ss_grad(leaf(), g)
+                ref = selective_sigmoid_bwd(s, spnet_loss_bwd(yt, s, g, w,
+                                                              loss_type))
+                g_rel[gv] = ((grad - ref).abs().max()
+                             / ref.abs().max().clamp_min(1e-30)).item()
+                if gv == 1.0:
+                    bitwise = torch.equal(grad, ref)
+                    t_rel = ((grad - twin_grad).abs().max()
+                             / twin_grad.abs().max().clamp_min(1e-30)).item()
+                    err = (grad - twin_grad).abs().max().item()
+            torch.cuda.synchronize()
+            l_rel = abs(float(outs[0]) - float(twin)) / max(abs(float(twin)),
+                                                            1e-30)
+            line = (f"[loss-ss] {loss_type:6s} B={b} M={m}  loss "
+                    f"{'bitwise equal' if torch.equal(outs[0], k4_k2) else 'DIFFERS'}"
+                    f" to K4 -> K2 ({float(outs[0]).hex()}), rel {l_rel:.2e} "
+                    f"vs the twins (tol {LOSS_RTOL}); grad wrt z vs K4 bwd o "
+                    f"K2 grad x g: rel {g_rel[1.0]:.2e} at g=1 (bitwise "
+                    f"{bitwise}), {g_rel[0.75]:.2e} at g=0.75 (tol "
+                    f"{SS_GRAD_RTOL}); vs the twins {t_rel:.2e} (tol "
+                    f"{LOSS_RTOL}); 3 calls, 3 graph replays and a call "
+                    "after them bitwise equal")
+            if not torch.equal(outs[0], k4_k2):
+                fail(f"ss loss {loss_type} {(b, m)}: {float(outs[0])!r} is "
+                     f"not bitwise K4 -> K2's {float(k4_k2)!r}")
+            if not all(torch.equal(o, outs[0]) for o in outs + replays +
+                       [after]):
+                fail(f"ss loss {loss_type} {(b, m)} is not bitwise "
+                     f"reproducible: calls {[float(o) for o in outs]}, "
+                     f"replays {[float(o) for o in replays]}, after "
+                     f"{float(after)!r}")
+            if not (max(g_rel.values()) <= SS_GRAD_RTOL and
+                    l_rel <= LOSS_RTOL and t_rel <= LOSS_RTOL):
+                fail(f"ss loss {loss_type} {(b, m)}: gradient rel {g_rel} "
+                     f"(K4 bwd o K2), {t_rel} (twins); loss rel {l_rel}")
+            res["err"] = max(res["err"], err)
+            if loss_type == "same":
+                g = torch.full((), 0.75, device=DEVICE)
+                p1, p2, p3 = leaf(), leaf(), leaf()
+
+                def composed():  # the parent's route: 4 launches
+                    loss = spnet_loss_fused(yt, SelectiveSigmoid.apply(p3),
+                                            w)
+                    return torch.autograd.grad(loss, p3, g)[0]
+
+                t = {
+                    "ss_fused": _timings(lambda: spnet_loss_fused(
+                        yt, p1, w, selective_sigmoid=True)),
+                    "ss_step": dict(ms=graph_ms(lambda: ss_grad(p2, g))),
+                    "ss_step_composed": dict(ms=graph_ms(composed)),
+                }
+                line += (f"\n{_timing_line('loss-ss', t)}; launch floor "
+                         f"{floor_ms:.5f} ms")
+                if b == TRAIN_BATCH:
+                    res.update(t)
+            print(f"{line}  [{smi}]")
+    return res
+
+
 def _seeded_split(sizes, size: int, grid, seed: int):
     """Datasets of the given sizes from one seeded `_seeded_dataset`."""
     from spnet_tpu_torch.data.dataset import Dataset
@@ -719,13 +861,17 @@ def _train_run(cfg, train_ds, val_ds, tmp, smi, tag="train"):
 
 
 def _f32_step_agreement(model_cfg, x16, y16, seed: int, tag: str,
-                        swap: str):
+                        swap: str, fused: bool = True) -> dict:
     """One float32 train-mode forward + loss + head-weight gradient from
     the same weights, dropout mask and batch, twice: with the kernels and
     with the plain versions of those `swap` names.  swap='loss': the fused
-    loss (K2/K3) against its twin; swap='model': the model's kernels (K4,
-    in train mode) against their plain versions, both with the fused loss.
-    Loss rel <= STEP_LOSS_RTOL, gradient rel <= STEP_GRAD_RTOL."""
+    loss (K2/K3) against its twin; swap='model': the model's kernels
+    against their plain versions (`plain_kernels`), both with the fused
+    loss, or both with the twin when not `fused`.  On an 'ss' head the
+    kernel side of swap='model' takes the fused route (K4 in the loss
+    kernel's pass), or with fused=False K4's own forward and backward.
+    Loss rel <= STEP_LOSS_RTOL, gradient rel <= STEP_GRAD_RTOL.  Returns
+    the launch counts of the kernel side's step."""
     from spnet_tpu_torch.models.spnet import build_model
     from spnet_tpu_torch.config import LossWeights
     from spnet_tpu_torch.train.steps import _prep_x, forward_loss
@@ -740,25 +886,31 @@ def _f32_step_agreement(model_cfg, x16, y16, seed: int, tag: str,
             init = {k: v.clone() for k, v in model.state_dict().items()}
         model.load_state_dict(init)
         model.train()
+        xp = _prep_x(x16)
+        _zero_counts()
         loss, _ = forward_loss(
-            model, _prep_x(x16), y16,
+            model, xp, y16,
             torch.Generator(device=DEVICE).manual_seed(seed), LossWeights(),
-            model_cfg.loss_type, fused=not (plain and swap == "loss"))
+            model_cfg.loss_type,
+            fused=fused and not (plain and swap == "loss"))
         head = (model.sigmoid_output if model.compound_head
                 else model.final_output)
         (gw,) = torch.autograd.grad(loss, head.weight)
         res.append((float(loss.detach()), gw))
+        if not plain:
+            counts = _counts()
         del model
     l_rel = abs(res[0][0] - res[1][0]) / abs(res[1][0])
     g_rel = ((res[0][1] - res[1][1]).abs().max()
              / res[1][1].abs().max()).item()
-    print(f"[{tag}] float32 step, {swap} kernels vs plain: loss rel "
-          f"{l_rel:.2e} "
+    print(f"[{tag}] float32 step, {model_cfg.loss_type}, {swap} kernels vs "
+          f"plain{'' if fused else ' (fused=False)'}: loss rel {l_rel:.2e} "
           f"(tol {STEP_LOSS_RTOL}), head-weight gradient rel {g_rel:.2e} "
-          f"(tol {STEP_GRAD_RTOL})")
+          f"(tol {STEP_GRAD_RTOL}); kernel side's launches {counts}")
     if not (l_rel <= STEP_LOSS_RTOL and g_rel <= STEP_GRAD_RTOL):
         fail(f"{tag}: float32 step, loss rel {l_rel}, head gradient rel "
              f"{g_rel}")
+    return counts
 
 
 def phase_train(seed: int, smi: str) -> dict:
@@ -912,9 +1064,22 @@ def phase_heads(seed: int, smi: str) -> dict:
         if mc.selective_sigmoid:
             x16 = torch.from_numpy(train_ds.x[:16]).to(DEVICE)
             y16 = torch.from_numpy(train_ds.y[:16]).to(DEVICE)
-            _f32_step_agreement(dataclasses.replace(
-                mc, compute_dtype="float32"), x16, y16, seed, tag,
-                swap="model")
+            for loss_type in ("same", "hybrid"):
+                f32 = dataclasses.replace(mc, compute_dtype="float32",
+                                          loss_type=loss_type)
+                counts = _f32_step_agreement(f32, x16, y16, seed, tag,
+                                             swap="model")
+                if counts != _want_counts(f32, train_steps=1):
+                    fail(f"{tag}: f32 step launches {counts}")
+            # fused=False: K4's own forward and backward on the model
+            counts = _f32_step_agreement(f32, x16, y16, seed, tag,
+                                         swap="model", fused=False)
+            want = dict(_want_counts(f32), selective_sigmoid_fwd=1,
+                        selective_sigmoid_bwd=1)
+            if counts != want:
+                fail(f"{tag}: f32 step with fused=False, launches {counts} "
+                     f"!= {want}")
+            out[tag]["k4_bwd_launches"] = counts["selective_sigmoid_bwd"]
     for tag, r in out.items():
         print(f"[heads] {tag}: predict {r['predict_fps']:.1f} frames/s at "
               f"b=16, train {r['img_per_sec']:.1f} images/s at "
@@ -937,6 +1102,7 @@ def main(argv=None):
     launches = phase_slice(args.seed, smi)
     floor_ms = launch_floor_ms()
     loss = phase_loss(args.seed, smi, floor_ms)
+    loss_ss = phase_loss_ss(args.seed, smi, floor_ms)
     train = phase_train(args.seed, smi)
     k4 = phase_k4(args.seed, smi)
     heads = phase_heads(args.seed, smi)
@@ -979,10 +1145,18 @@ def main(argv=None):
     },
         # the loss alone; the train step's forward also writes the
         # gradient (fused_ms, fused_bound_ms)
+        # ss_fused_ms: the 'ss' train step's forward (K4 in the pass, the
+        # gradient wrt the pre-activation); ss_launches: its launches in
+        # phase 7's 'ss' training run
         small("spnet_loss_fwd", loss_src, "spnet_tpu/ops/losses.py:135",
               train["fwd_launches"], loss["fwd_err"], loss["fwd"],
               loss["fwd_plain"], 2 * n + 4, fused_ms=loss["fused"]["ms"],
-              fused_bound_ms=1e3 * (3 * n + 4) / HBM_BYTES_PER_S),
+              fused_bound_ms=1e3 * (3 * n + 4) / HBM_BYTES_PER_S,
+              ss_fused_ms=loss_ss["ss_fused"]["ms"],
+              ss_launches=heads["ss"]["train_counts"][SS_COUNT],
+              ss_max_abs_err=loss_ss["err"],
+              ss_step_ms=loss_ss["ss_step"]["ms"],
+              ss_step_composed_ms=loss_ss["ss_step_composed"]["ms"]),
         # g * dloss/dy_pred from y_true, y_pred and g; the train step's
         # backward scales the kept gradient (scale_ms, scale_bound_ms)
         small("spnet_loss_bwd", loss_src, "spnet_tpu/ops/losses.py:176",
@@ -992,8 +1166,10 @@ def main(argv=None):
         small("selective_sigmoid_fwd", k4_src, k4_at,
               heads["ss"]["predict_counts"]["selective_sigmoid_fwd"],
               k4["fwd_err"], k4["fwd"], k4["fwd_plain"], 2 * n),
+        # on the 'ss' train step K4 runs inside the loss kernel's pass:
+        # its backward's launches are those of phase 7's fused=False step
         small("selective_sigmoid_bwd", k4_src, k4_at,
-              heads["ss"]["train_counts"]["selective_sigmoid_bwd"],
+              heads["ss"]["k4_bwd_launches"],
               k4["bwd_err"], k4["bwd"], k4["bwd_plain"], 3 * n),
     ]}))
     print(json.dumps({"ok": True, "device": {

@@ -19,7 +19,15 @@
 // What bounds it on this card.  At the training batch (128 x 576) each
 // direction moves 295 KB in and 295 KB out: a fraction of a microsecond of
 // HBM traffic, and 9216 sigmoids.  Both kernels are bound by launch latency
-// and by the host time of the call around them.
+// and by the host time of the call around them: their bytes' bound (0.18
+// and 0.26 us) lies below the cost of one launch (about 1 us), and each
+// body runs about 0.4 us above that floor, so no standalone launch of
+// either can come near its bound, and these kernels are left as they are.
+// Where K4 meets the loss, on the 'ss' training step, it runs inside the
+// loss kernel's pass instead (csrc/loss.cu, the SS variant): no launch of
+// its own, no bytes of its own.  Serving still runs the forward here after
+// the head's product, and `SelectiveSigmoid` (forward and backward) stays
+// on the paths that do not take the fused loss.
 //
 // Design.  No TPU layout: the Pallas kernel transposes (B, M) to (8, B*S)
 // so that variable 6 becomes one sublane row.  Here one thread owns one

@@ -17,6 +17,16 @@
 // variable's weight (the angle pair scaled by (t_a - t_b)^2); the noobj
 // variable takes w_n * 2 (p - t), or w_n (sigmoid(p) - t) under 'hybrid'.
 //
+// It also carries the selective sigmoid of the 'ss' head (K4,
+// `spnet_tpu/ops/activations.py::_sel_sigmoid_kernel`, whose standalone
+// port is csrc/activations.cu) on the training step.  With the SS flag
+// y_pred is the head's pre-activation z: the kernel sets
+// p_noobj = s = 1 / (1 + expf(-z_noobj)), K4's formula, before the loss, so
+// the loss is bitwise the loss of K4's output, and multiplies the noobj
+// lane of the gradient by s (1 - s) after it (after the scale by g, when
+// g is given), as K4's backward does.  Under 'hybrid' the BCE then reads
+// sigmoid(s), as the JAX package's 'ss' head with that loss does.
+//
 // What bounds it on this card.  At the training batch (B = 128, M = 576)
 // the loss reads 2 * 128 * 576 * 4 B = 590 KB, 0.18 us at 3.35 TB/s, and
 // the gradient reads as much and writes half of it again, 0.26 us.  One
@@ -32,6 +42,11 @@
 //     reading g through a device pointer): two launches per step, and the
 //     operands are read once.  The standalone gradient (`spnet_loss_bwd`)
 //     is the same kernel with the loss off and the scale *g on.
+//   * The selective sigmoid adds no bytes and no launch: a standalone K4
+//     launch costs more than the launch floor (about 1 us), far above its
+//     bytes' 0.2 us, so on the 'ss' training step the sigmoid and its
+//     gradient ride in this pass, and the step runs two launches in place
+//     of four.
 //   * Each thread owns one slot and reads its 8 floats of each operand in
 //     place (two 16-byte loads when the pointers are 16-byte aligned, eight
 //     4-byte loads otherwise), with no transpose and no padding copy: the
@@ -170,8 +185,10 @@ __device__ __forceinline__ float block_sum(float v) {
 
 // K2 and K3 in one pass.  LOSS: out[0] = sum of the slot losses / (B*M),
 // reduced across blocks by the last block to finish (see the header).
-// GRAD: dyp = dloss/dp, times *g when g is not null.
-template <bool VEC, bool LOSS, bool GRAD>
+// GRAD: dyp = dloss/dp, times *g when g is not null.  SS: yp holds the
+// pre-activation z; the noobj lane goes through the sigmoid first, and its
+// gradient through the sigmoid's after (K4 in the same pass).
+template <bool VEC, bool LOSS, bool GRAD, bool SS>
 __global__ void __launch_bounds__(THREADS)
     loss_kernel(const float* __restrict__ yt, const float* __restrict__ yp,
                 const float* __restrict__ g, float* __restrict__ dyp,
@@ -186,6 +203,8 @@ __global__ void __launch_bounds__(THREADS)
     float t[VARS], p[VARS];
     load_slot<VEC>(yt, slot, t);
     load_slot<VEC>(yp, slot, p);
+    // K4's forward, csrc/activations.cu: expf and IEEE division
+    if (SS) p[NOOBJ] = 1.0f / (1.0f + expf(-p[NOOBJ]));
     if (LOSS) v = slot_loss(t, p, w, hybrid);
     if (GRAD) {
       float d[VARS];
@@ -194,6 +213,8 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
         for (int k = 0; k < VARS; ++k) d[k] = gs * d[k];
       }
+      // K4's backward on the noobj lane, in its order: d * (s (1 - s))
+      if (SS) d[NOOBJ] = d[NOOBJ] * (p[NOOBJ] * (1.0f - p[NOOBJ]));
       store_slot<VEC>(dyp, slot, d);
     }
   }
@@ -256,10 +277,16 @@ using LossKernel = void (*)(const float*, const float*, const float*, float*,
                             float*, float*, unsigned int*, long long, float,
                             Weights, int);
 
-template <bool VEC>
+template <bool VEC, bool SS>
 LossKernel pick(bool loss, bool grad) {
-  if (!loss) return loss_kernel<VEC, false, true>;
-  return grad ? loss_kernel<VEC, true, true> : loss_kernel<VEC, true, false>;
+  if (!loss) return loss_kernel<VEC, false, true, SS>;
+  return grad ? loss_kernel<VEC, true, true, SS>
+              : loss_kernel<VEC, true, false, SS>;
+}
+
+template <bool VEC>
+LossKernel pick(bool loss, bool grad, bool ss) {
+  return ss ? pick<VEC, true>(loss, grad) : pick<VEC, false>(loss, grad);
 }
 
 }  // namespace
@@ -272,13 +299,14 @@ LossKernel pick(bool loss, bool grad) {
 //     other launch uses at the same time.
 //   dy_pred: (B, M) float32 for the gradient, or null for none; g: one
 //     float on the device that scales the gradient, or null for 1.
-// hybrid: 0 = 'same', 1 = 'hybrid'.
+// hybrid: 0 = 'same', 1 = 'hybrid'.  ss: 1 = y_pred is the 'ss' head's
+// pre-activation (the selective sigmoid in the same pass), 0 = the output.
 extern "C" int spnet_loss(const void* y_true, const void* y_pred,
                           const void* g, void* dy_pred, void* out,
                           void* partials, int capacity, void* counter,
                           long long n_slots, float inv_norm, float w_center,
                           float w_size, float w_angle, float w_noobj,
-                          float w_rings, int hybrid, void* stream) {
+                          float w_rings, int hybrid, int ss, void* stream) {
   const long long blocks = blocks_for(n_slots);
   if (n_slots <= 0 || (!out && !dy_pred) || blocks > 0x7fffffffLL ||
       (out && (!partials || !counter || blocks > capacity)))
@@ -286,8 +314,8 @@ extern "C" int spnet_loss(const void* y_true, const void* y_pred,
   const Weights w{w_center, w_size, w_angle, w_noobj, w_rings};
   const LossKernel kernel =
       aligned16(y_true, y_pred, dy_pred ? dy_pred : y_pred)
-          ? pick<true>(out != nullptr, dy_pred != nullptr)
-          : pick<false>(out != nullptr, dy_pred != nullptr);
+          ? pick<true>(out != nullptr, dy_pred != nullptr, ss != 0)
+          : pick<false>(out != nullptr, dy_pred != nullptr, ss != 0);
   kernel<<<static_cast<unsigned>(blocks), THREADS, 0,
            static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(y_true), static_cast<const float*>(y_pred),

@@ -16,7 +16,9 @@ Counterpart of `spnet_tpu/models/spnet.py`:
                         so that slot k's noobj lane holds sigmoid k
                         (reference model_type 'compound')
     [-> selective sigmoid on every noobj lane]  (reference model_type 'ss';
-         kernel K4, `ops/activations.py::SelectiveSigmoid`)
+         kernel K4, `ops/activations.py::SelectiveSigmoid`; the fused
+         training loss applies it itself, and the train step then asks
+         the model to leave it out: forward(..., selective_sigmoid=False))
 
 The flatten is NHWC, as in JAX, so a converted head kernel needs no
 permutation, and the compound interleave is JAX's, so neither does the
@@ -118,10 +120,13 @@ class SPNet(nn.Module):
         else:
             self.final_output = nn.Linear(n_in, num_outputs)
 
-    def forward(self, x, dropout_generator: torch.Generator | None = None):
+    def forward(self, x, dropout_generator: torch.Generator | None = None,
+                *, selective_sigmoid: bool = True):
         """x (B, H, W, 1) -> (B, num_outputs) float32.  In train mode with
         a dropout rate above 0, `dropout_generator` (on x's device) draws
-        the dropout mask."""
+        the dropout mask.  selective_sigmoid=False leaves the 'ss' head's
+        selective sigmoid out (its pre-activation, for a loss that applies
+        it); it changes nothing for the other heads."""
         x = self.stem(x.to(self.dtype))
         x = self.stem_dropout(x, dropout_generator)
         x = self.backbone(x.to(self.backbone_dtype))
@@ -136,7 +141,7 @@ class SPNet(nn.Module):
             x = x.reshape(x.shape[0], -1)
         else:
             x = self.final_output(x)
-        if self.selective_sigmoid:
+        if self.selective_sigmoid and selective_sigmoid:
             x = (selective_sigmoid_torch(x) if self.plain_kernels
                  else SelectiveSigmoid.apply(x))
         return x

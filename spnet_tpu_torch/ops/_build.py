@@ -21,6 +21,8 @@ import tempfile
 import time
 from pathlib import Path
 
+import torch
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
@@ -100,7 +102,7 @@ def load_library() -> ctypes.CDLL:
     lib.spnet_sepconv_wgmma_smem.restype = i
     ll, f = ctypes.c_longlong, ctypes.c_float
     lib.spnet_loss.argtypes = [p, p, p, p, p, p, i, p, ll, f, f, f, f, f,
-                               f, i, p]
+                               f, i, i, p]
     lib.spnet_loss.restype = i
     lib.spnet_loss_grad_scale.argtypes = [p, p, p, ll, p]
     lib.spnet_loss_grad_scale.restype = i
@@ -109,3 +111,17 @@ def load_library() -> ctypes.CDLL:
     lib.spnet_selective_sigmoid_bwd.argtypes = [p, p, p, ll, p]
     lib.spnet_selective_sigmoid_bwd.restype = i
     return lib
+
+
+def on_device(index: int, launch):
+    """launch(stream) on device `index` with the handle of its current
+    stream: what every small kernel's wrapper does around its ctypes call.
+    The raw handle, as Triton's launcher takes it: building a
+    `torch.cuda.Stream` (`current_stream().cuda_stream`) costs several µs
+    of host time per call, more than such a kernel's device time; and no
+    device context is entered when `index` is already the current one."""
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    if index == torch.cuda.current_device():
+        return launch(stream)
+    with torch.cuda.device(index):
+        return launch(stream)

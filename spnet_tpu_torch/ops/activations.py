@@ -16,7 +16,12 @@ Three parts:
     twin.  Each counts its kernel launches in `.launches`; CPU calls are not
     counted.
   * `SelectiveSigmoid`: the autograd function over the two wrappers, which
-    the model's 'ss' head applies.
+    the model's 'ss' head applies.  Its backward skips the checks: it gets
+    the tensors its forward checked.
+On the 'ss' training step the loss kernel applies the selective sigmoid
+in its own pass (`ops/losses.py::spnet_loss_fused`, selective_sigmoid=True)
+and the model leaves it out, so these kernels serve predict, evaluate and
+the paths that do not take the fused loss.
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ from __future__ import annotations
 import torch
 
 from spnet_tpu_torch.config import IND_NOOBJ, VARS_PER_PRED
+from spnet_tpu_torch.ops._build import load_library, on_device
 
 
 def _noobj_lanes(x):
@@ -70,14 +76,11 @@ def _check(*named):
 
 
 def _launch(fn_name: str, out, *inputs):
-    from spnet_tpu_torch.ops._build import load_library
-
-    lib = load_library()
+    fn = getattr(load_library(), fn_name)
     n_slots = out.numel() // VARS_PER_PRED
-    with torch.cuda.device(out.device):
-        stream = torch.cuda.current_stream(out.device).cuda_stream
-        err = getattr(lib, fn_name)(*(v.data_ptr() for v in inputs),
-                                    out.data_ptr(), n_slots, stream)
+    ptrs = [v.data_ptr() for v in inputs]
+    err = on_device(out.device.index, lambda stream: fn(
+        *ptrs, out.data_ptr(), n_slots, stream))
     if err != 0:
         raise RuntimeError(f"{fn_name} kernel launch failed: CUDA error "
                            f"{err}")
@@ -100,6 +103,11 @@ def selective_sigmoid_bwd(y, g):
     g (both (B, M) float32): K4's backward kernel on a CUDA tensor, the
     twin on a CPU one."""
     _check(("y", y), ("g", g))
+    return _bwd(y, g)
+
+
+def _bwd(y, g):
+    """selective_sigmoid_bwd without the checks."""
     if y.device.type == "cpu":
         return selective_sigmoid_grad_torch(y, g)
     dx = _launch("spnet_selective_sigmoid_bwd", torch.empty_like(g), y, g)
@@ -113,7 +121,8 @@ selective_sigmoid_bwd.launches = 0
 
 class SelectiveSigmoid(torch.autograd.Function):
     """Forward `selective_sigmoid_fwd`, backward `selective_sigmoid_bwd`
-    from the saved output."""
+    from the saved output (unchecked: the forward checked y, and g has
+    its shape, dtype and device)."""
 
     @staticmethod
     def forward(ctx, x):
@@ -124,4 +133,4 @@ class SelectiveSigmoid(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         (y,) = ctx.saved_tensors
-        return selective_sigmoid_bwd(y, g.contiguous())
+        return _bwd(y, g.contiguous())

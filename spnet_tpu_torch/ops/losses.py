@@ -25,14 +25,19 @@ kernels.  The kernels (`csrc/loss.cu`, K2 and K3 in one pass):
   * `spnet_loss_fused`: an autograd function.  Its forward is one launch
     that gives the loss and, when y_pred needs a gradient, the gradient
     too, which it keeps; its backward is one launch that scales the kept
-    gradient by the upstream g (`spnet_loss_grad_scale`).
+    gradient by the upstream g (`spnet_loss_grad_scale`).  With
+    `selective_sigmoid=True` y_pred is the 'ss' head's pre-activation z:
+    the same launch applies the selective sigmoid (K4) to it first and
+    gives the gradient with respect to z, so the 'ss' training step runs
+    no K4 launch of its own.
   * `spnet_loss_fwd(y_true, y_pred)`: the loss alone, one launch.
   * `spnet_loss_bwd(y_true, y_pred, g)`: g * dloss/dy_pred, one launch.
 On a CUDA tensor each wrapper launches its kernel or raises; on a CPU
 tensor it runs the plain version.  Launches are counted in
 `spnet_loss_fwd.launches` (the loss, with or without the gradient) and
 `spnet_loss_bwd.launches` (the standalone gradient and the backward's
-scale); CPU calls are not counted.
+scale), and the forward's launches with the selective sigmoid also in
+`spnet_loss_fwd.ss_launches`; CPU calls are not counted.
 
 The loss reduces across blocks in the launch itself, through a small
 workspace (partials and a counter the kernel leaves at 0) kept per
@@ -53,6 +58,9 @@ from spnet_tpu_torch.config import (
     IND_A, IND_ANGLE1, IND_ANGLE2, IND_B, IND_CX, IND_CY, IND_NOOBJ,
     IND_RINGS, VARS_PER_PRED, LossWeights,
 )
+from spnet_tpu_torch.ops._build import load_library, on_device
+from spnet_tpu_torch.ops.activations import selective_sigmoid_grad_torch, \
+    selective_sigmoid_torch
 
 LOSS_TYPES = ("same", "hybrid")
 
@@ -193,25 +201,12 @@ def _workspace(index: int, stream: int, blocks: int):
     return ws
 
 
-def _on_device(index: int, launch):
-    """launch(stream) on device `index` with the handle of its current
-    stream.  The raw handle, as Triton's launcher takes it: building a
-    `torch.cuda.Stream` (`current_stream().cuda_stream`) costs several µs
-    of host time per call, more than the kernel's device time."""
-    stream = torch._C._cuda_getCurrentRawStream(index)
-    if index == torch.cuda.current_device():
-        return launch(stream)
-    with torch.cuda.device(index):
-        return launch(stream)
-
-
 def _launch(y_true, y_pred, g, dyp, out, weights: LossWeights,
-            loss_type: str):
+            loss_type: str, ss: bool = False):
     """One launch of the loss kernel: the loss into `out` and/or the
     gradient (times *g, when g is given) into `dyp`; None for what is not
-    wanted."""
-    from spnet_tpu_torch.ops._build import load_library
-
+    wanted.  ss: y_pred is the 'ss' head's pre-activation (the selective
+    sigmoid in the same pass)."""
     lib = load_library()
     b, m = y_pred.shape
     n_slots = b * m // VARS_PER_PRED
@@ -228,9 +223,10 @@ def _launch(y_true, y_pred, g, dyp, out, weights: LossWeights,
             None if g is None else g.data_ptr(),
             None if dyp is None else dyp.data_ptr(),
             None if out is None else out.data_ptr(), *workspace, n_slots,
-            1.0 / (b * m), *_weight_args(weights, loss_type), stream)
+            1.0 / (b * m), *_weight_args(weights, loss_type), int(ss),
+            stream)
 
-    err = _on_device(index, launch)
+    err = on_device(index, launch)
     if err != 0:
         raise RuntimeError(f"loss kernel launch failed: CUDA error {err}")
 
@@ -277,12 +273,10 @@ def spnet_loss_grad_scale(grad, g):
     second backward of the same graph gives the same gradient."""
     if grad.device.type == "cpu":
         return grad * g
-    from spnet_tpu_torch.ops._build import load_library
-
     lib = load_library()
     out = torch.empty_like(grad)
     n_slots = grad.numel() // VARS_PER_PRED
-    err = _on_device(grad.device.index, lambda stream: (
+    err = on_device(grad.device.index, lambda stream: (
         lib.spnet_loss_grad_scale(g.data_ptr(), grad.data_ptr(),
                                   out.data_ptr(), n_slots, stream)))
     if err != 0:
@@ -293,26 +287,42 @@ def spnet_loss_grad_scale(grad, g):
 
 
 spnet_loss_fwd.launches = 0
+spnet_loss_fwd.ss_launches = 0  # of those, launches of the 'ss' variant
 spnet_loss_bwd.launches = 0
+
+
+def _fused_twin(y_true, y_pred, weights: LossWeights, loss_type: str,
+                with_grad: bool, ss: bool):
+    """The plain version of the fused forward: the loss and, when asked,
+    its closed-form gradient; with `ss`, of the selective sigmoid of
+    y_pred, the gradient taken on through the sigmoid's backward."""
+    p = selective_sigmoid_torch(y_pred) if ss else y_pred
+    loss = spnet_loss(y_true, p, weights, loss_type)
+    if not with_grad:
+        return loss, None
+    grad = spnet_loss_grad_torch(y_true, p, weights, loss_type)
+    return loss, selective_sigmoid_grad_torch(p, grad) if ss else grad
 
 
 class _FusedLoss(torch.autograd.Function):
     """The loss, with the gradient computed in the same pass when y_pred
     needs one (`with_grad`) and kept for the backward, which scales it by
     g (the JAX package's `jax.custom_vjp` around `spnet_loss_pallas`).
-    y_true gets no gradient."""
+    With `ss`, y_pred is the 'ss' head's pre-activation and the gradient
+    is with respect to it.  y_true gets no gradient."""
 
     @staticmethod
-    def forward(ctx, y_true, y_pred, weights, loss_type, with_grad):
+    def forward(ctx, y_true, y_pred, weights, loss_type, with_grad, ss):
         if y_pred.device.type == "cpu":
-            loss = spnet_loss(y_true, y_pred, weights, loss_type)
-            grad = (spnet_loss_grad_torch(y_true, y_pred, weights, loss_type)
-                    if with_grad else None)
+            loss, grad = _fused_twin(y_true, y_pred, weights, loss_type,
+                                     with_grad, ss)
         else:
             loss = torch.empty((), dtype=torch.float32, device=y_pred.device)
             grad = torch.empty_like(y_pred) if with_grad else None
-            _launch(y_true, y_pred, None, grad, loss, weights, loss_type)
+            _launch(y_true, y_pred, None, grad, loss, weights, loss_type, ss)
             spnet_loss_fwd.launches += 1
+            if ss:
+                spnet_loss_fwd.ss_launches += 1
         if grad is not None:
             ctx.save_for_backward(grad)
         return loss
@@ -320,16 +330,21 @@ class _FusedLoss(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         if not ctx.saved_tensors:  # y_pred needed no gradient
-            return None, None, None, None, None
+            return None, None, None, None, None, None
         (grad,) = ctx.saved_tensors
-        return None, spnet_loss_grad_scale(grad, g), None, None, None
+        return None, spnet_loss_grad_scale(grad, g), None, None, None, None
 
 
 def spnet_loss_fused(y_true, y_pred, weights: LossWeights = LossWeights(),
-                     loss_type: str = "same"):
+                     loss_type: str = "same",
+                     selective_sigmoid: bool = False):
     """Scalar total loss through the fused kernels, differentiable in
     y_pred.  Under `torch.no_grad` / `inference_mode`, or when y_pred needs
-    no gradient, no gradient is computed."""
+    no gradient, no gradient is computed.  selective_sigmoid=True: y_pred
+    is the 'ss' head's output before its selective sigmoid, which the
+    kernel applies (the loss of `selective_sigmoid_fwd(y_pred)`, the
+    gradient with respect to y_pred)."""
     _check(y_true, y_pred, loss_type)
     with_grad = y_pred.requires_grad and torch.is_grad_enabled()
-    return _FusedLoss.apply(y_true, y_pred, weights, loss_type, with_grad)
+    return _FusedLoss.apply(y_true, y_pred, weights, loss_type, with_grad,
+                            selective_sigmoid)

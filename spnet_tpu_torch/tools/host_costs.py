@@ -37,7 +37,8 @@ def main(argv=None):
     from spnet_tpu_torch.config import LossWeights
     from spnet_tpu_torch.ops import losses
     from spnet_tpu_torch.ops._build import load_library
-    from spnet_tpu_torch.ops.activations import selective_sigmoid_fwd
+    from spnet_tpu_torch.ops.activations import selective_sigmoid_bwd, \
+        selective_sigmoid_fwd
 
     lib = load_library()
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -62,9 +63,9 @@ def main(argv=None):
             torch._C._cuda_getCurrentRawStream(0)),
         "torch.cuda.current_device()": torch.cuda.current_device,
         "tensor.data_ptr()": yp.data_ptr,
-        "ctypes, 17 arguments, no launch (n_slots = 0)": lambda: (
+        "ctypes, 18 arguments, no launch (n_slots = 0)": lambda: (
             lib.spnet_loss(None, None, None, None, None, None, 0, None, 0,
-                           1.0, 1.0, 1.0, 1.0, 1.0, 1.0, 0, stream)),
+                           1.0, 1.0, 1.0, 1.0, 1.0, 1.0, 0, 0, stream)),
         "ctypes, 5 arguments, with a launch (the scale kernel)": lambda: (
             lib.spnet_loss_grad_scale(g.data_ptr(), kept.data_ptr(),
                                       yt.data_ptr(), 9216, stream)),
@@ -77,7 +78,10 @@ def main(argv=None):
                                                                       g),
         "spnet_loss_fused (y_pred needs a gradient)": lambda: (
             losses.spnet_loss_fused(yt, p)),
+        "spnet_loss_fused, selective_sigmoid=True (with a gradient)": (
+            lambda: losses.spnet_loss_fused(yt, p, selective_sigmoid=True)),
         "selective_sigmoid_fwd": lambda: selective_sigmoid_fwd(yp),
+        "selective_sigmoid_bwd": lambda: selective_sigmoid_bwd(yp, yt),
     }
     print(f"{torch.cuda.get_device_name(0)}; host us per call over "
           f"{args.calls} calls")

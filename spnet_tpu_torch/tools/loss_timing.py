@@ -9,22 +9,30 @@ own, in turns: other, this, this, other, each building its kernels from
 its own sources.  Every process times, at (B, 576) float32 'same' on
 chip_smoke.py's seeded inputs and with chip_smoke.py's helpers:
 
-  fwd    spnet_loss_fwd(y_true, y_pred)            the loss alone
-  bwd    spnet_loss_bwd(y_true, y_pred, g)         g * dloss/dy_pred
-  step   spnet_loss_fused forward + autograd.grad  what a train step runs
-  fused  spnet_loss_fused forward, y_pred needing a gradient
-  floor  a one-element add_
+  fwd      spnet_loss_fwd(y_true, y_pred)            the loss alone
+  bwd      spnet_loss_bwd(y_true, y_pred, g)         g * dloss/dy_pred
+  step     spnet_loss_fused forward + autograd.grad  what a train step runs
+  fused    spnet_loss_fused forward, y_pred needing a gradient
+  ss_step  the 'ss' head's train step from the pre-activation z to the
+           loss and dloss/dz, by the route the checkout's own
+           `train/steps.py::forward_loss` takes: the loss kernel with the
+           selective sigmoid in its pass where `spnet_loss_fused` has the
+           `selective_sigmoid` flag (2 launches), else `SelectiveSigmoid`
+           (K4), the fused loss and K4's backward (4 launches)
+  floor    a one-element add_
 
 each as the device time per call from a CUDA graph of 100 calls (`ms`),
 the event time of one call (`call_ms`) and the host time per eager call
-(`host_us`), and prints one JSON line; then a table of all four runs.  It
-needs a CUDA card.
+(`host_us`), and prints one JSON line (with the loss, and the 'ss' loss,
+as hex floats, to show them bitwise equal across versions); then a table
+of all four runs.  It needs a CUDA card.
 """
 
 from __future__ import annotations
 
 import argparse
 import importlib.util
+import inspect
 import json
 import subprocess
 import sys
@@ -48,6 +56,7 @@ def measure(root: Path, b: int) -> dict:
     import torch
 
     from spnet_tpu_torch.ops import losses
+    from spnet_tpu_torch.ops.activations import SelectiveSigmoid
 
     if Path(losses.__file__).resolve().parents[2] != root.resolve():
         raise RuntimeError(f"imported {losses.__file__}, not from {root}")
@@ -60,14 +69,27 @@ def measure(root: Path, b: int) -> dict:
         loss = losses.spnet_loss_fused(yt, p)
         return loss, torch.autograd.grad(loss, p, g)[0]
 
+    fused_ss = "selective_sigmoid" in inspect.signature(
+        losses.spnet_loss_fused).parameters
+
+    def ss_step():
+        if fused_ss:
+            loss = losses.spnet_loss_fused(yt, p, selective_sigmoid=True)
+        else:
+            loss = losses.spnet_loss_fused(yt, SelectiveSigmoid.apply(p))
+        return loss, torch.autograd.grad(loss, p, g)[0]
+
     fns = {"fwd": lambda: losses.spnet_loss_fwd(yt, yp),
            "bwd": lambda: losses.spnet_loss_bwd(yt, yp, g),
            "step": step,
-           "fused": lambda: losses.spnet_loss_fused(yt, p)}
+           "fused": lambda: losses.spnet_loss_fused(yt, p),
+           "ss_step": ss_step}
     out = {k: cs._timings(fn) for k, fn in fns.items()}
     out["floor"] = dict(ms=cs.launch_floor_ms())
     loss = losses.spnet_loss_fwd(yt, yp)
     out["loss_hex"] = float(loss).hex()
+    out["ss_loss_hex"] = float(ss_step()[0]).hex()
+    out["ss_route"] = "fused" if fused_ss else "composed"
     out["root"] = str(root)
     return out
 
@@ -98,14 +120,15 @@ def main(argv=None):
         print(f"[{name}] {line}")
     print(f"B={args.b} M=576 'same'; ms = device ms per call (graph of 100), "
           "call = one call between events (ms), host = us per eager call")
-    for key in ("fwd", "bwd", "step", "fused"):
-        print(f"{key:6s}" + "".join(
+    for key in ("fwd", "bwd", "step", "fused", "ss_step"):
+        print(f"{key:8s}" + "".join(
             f"  {name}: ms {r[key]['ms']:.5f} call {r[key]['call_ms']:.4f} "
             f"host {r[key]['host_us']:.2f}" for name, r in runs))
-    print("floor " + "".join(f"  {name}: ms {r['floor']['ms']:.5f}"
-                             for name, r in runs))
-    print("loss  " + "".join(f"  {name}: {r['loss_hex']}"
-                             for name, r in runs))
+    print("floor   " + "".join(f"  {name}: ms {r['floor']['ms']:.5f}"
+                               for name, r in runs))
+    for key in ("loss_hex", "ss_loss_hex", "ss_route"):
+        print(f"{key:12s}" + "".join(f"  {name}: {r[key]}"
+                                     for name, r in runs))
 
 
 if __name__ == "__main__":

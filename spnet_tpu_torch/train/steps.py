@@ -4,8 +4,9 @@ Counterpart of `spnet_tpu/train/steps.py`.  A train step gathers its
 minibatch from the uint8 dataset resident on the device, normalizes it,
 augments it (cutout, salt & pepper, optional blur), runs the forward pass
 in train mode (batch-stat BatchNorm, dropout), the loss (the fused kernels
-K2/K3) plus the L2 penalty, the backward pass, and one Adam
-update under the 1-cycle schedule.  PyTorch runs eagerly, so where JAX
+K2/K3, which on the 'ss' head also apply its selective sigmoid K4) plus the
+L2 penalty, the backward pass, and one Adam update under the 1-cycle
+schedule.  PyTorch runs eagerly, so where JAX
 compiles a whole epoch into one program, the port runs one step per
 minibatch from a Python loop (`train/loop.py`).
 
@@ -77,10 +78,18 @@ def forward_loss(model: nn.Module, x, y, generator: torch.Generator | None,
                  l2_scope: str = "reference", fused: bool = True):
     """Forward pass in the model's current mode, data loss (the fused
     kernels, or the plain twin with fused=False) and the L2 term.
-    Returns (loss, data_loss), both 0-d float32 tensors."""
-    out = model(x, dropout_generator=generator)
-    loss_fn = spnet_loss_fused if fused else spnet_loss
-    data_loss = loss_fn(y, out, loss_weights, loss_type)
+    Returns (loss, data_loss), both 0-d float32 tensors.
+
+    On an 'ss' head with its kernels (not `plain_kernels`), the fused loss
+    applies the selective sigmoid in its own pass: the model leaves it out
+    and the loss takes the pre-activation (one launch forward and one
+    backward in place of four).  fused=False keeps the model's
+    `SelectiveSigmoid` and the plain loss."""
+    ss = fused and model.selective_sigmoid and not model.plain_kernels
+    out = model(x, dropout_generator=generator, selective_sigmoid=not ss)
+    data_loss = (spnet_loss_fused(y, out, loss_weights, loss_type,
+                                  selective_sigmoid=ss) if fused
+                 else spnet_loss(y, out, loss_weights, loss_type))
     loss = data_loss
     if l2_reg and l2_scope != "none":
         loss = loss + l2_reg * kernel_l2(model, l2_scope)

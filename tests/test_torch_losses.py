@@ -4,7 +4,10 @@ gradient, the closed-form gradient `spnet_loss_grad_torch` and the fused
 autograd function's CPU path against `jax.grad` of `spnet_loss_pallas`
 (interpret mode on the CPU, as tests/test_losses.py runs it), what the
 fused function keeps for its backward, the kernel's block count, and what
-the wrappers refuse.  The kernels themselves run only on the card
+the wrappers refuse; and the fused function's 'ss' route
+(selective_sigmoid=True: the loss of the selective sigmoid of y_pred, the
+gradient with respect to y_pred) against the JAX package's Pallas and jnp
+compositions.  The kernels themselves run only on the card
 (tests/test_torch_losses_cuda.py)."""
 
 import re
@@ -16,12 +19,15 @@ import pytest
 import torch
 
 from spnet_tpu.config import LossWeights as JLossWeights
+from spnet_tpu.ops.activations import selective_sigmoid_jnp, \
+    selective_sigmoid_pallas
 from spnet_tpu.ops.losses import loss_components as j_components
 from spnet_tpu.ops.losses import spnet_loss as j_loss
 from spnet_tpu.ops.losses import spnet_loss_pallas
 from spnet_tpu_torch.config import GridSpec, LossWeights
 from spnet_tpu_torch.grid import normalize
 from spnet_tpu_torch.ops import losses
+from spnet_tpu_torch.ops.activations import SelectiveSigmoid
 from spnet_tpu_torch.ops.losses import (
     loss_components,
     loss_blocks,
@@ -227,3 +233,98 @@ def test_block_count_is_the_kernels_rule(n_slots):
     assert losses.LOSS_THREADS == int(threads)
     assert loss_blocks(n_slots) == (n_slots + int(threads) - 1) \
         // int(threads)
+
+
+# the selective sigmoid's test shapes (tests/test_torch_activations.py)
+SS_SHAPES = [(4, 576), (128, 576), (3, 296)]
+
+
+def _ss_inputs(seed, b, m):
+    """Targets as `_rand_any` gives them and head pre-activations z of both
+    signs, far enough out that the sigmoid's tails are reached."""
+    yt, _ = _rand_any(seed, b, m)
+    z = (4.0 * np.random.default_rng(seed + 1).normal(0, 1, (b, m))) \
+        .astype(np.float32)
+    return yt, z
+
+
+@pytest.mark.parametrize("loss_type", LOSS_TYPES)
+@pytest.mark.parametrize("shape", SS_SHAPES)
+def test_fused_ss_matches_jax(shape, loss_type):
+    """spnet_loss_fused(..., selective_sigmoid=True) on the CPU against the
+    JAX package's 'ss' head followed by its loss, twice:
+      * Pallas, in interpret mode: spnet_loss_pallas(t,
+        selective_sigmoid_pallas(z)); its gradient is the Pallas loss's
+        custom VJP taken through the VJP of `selective_sigmoid_jnp` (the
+        Pallas sigmoid has no autodiff rule: the JAX model differentiates
+        its jnp twin);
+      * jnp: jax.value_and_grad of spnet_loss(t, selective_sigmoid_jnp(z)).
+    Loss rel 1e-5; gradient rtol 1e-4, atol 1e-6, as
+    tests/test_losses.py holds the Pallas loss."""
+    yt, z = _ss_inputs(sum(shape), *shape)
+
+    def pallas(z):
+        s = selective_sigmoid_pallas(z)
+        v, g_s = jax.value_and_grad(
+            lambda p: spnet_loss_pallas(yt, p, JW, loss_type))(s)
+        return v, jax.vjp(selective_sigmoid_jnp, z)[1](g_s)[0]
+
+    refs = [jax.jit(pallas)(z), jax.jit(jax.value_and_grad(
+        lambda z: j_loss(yt, selective_sigmoid_jnp(z), JW, loss_type)))(z)]
+    p = torch.from_numpy(z).requires_grad_(True)
+    loss = spnet_loss_fused(torch.from_numpy(yt), p, W, loss_type,
+                            selective_sigmoid=True)
+    (grad,) = torch.autograd.grad(loss, p)
+    assert grad.shape == shape and grad.dtype == torch.float32
+    for v_ref, g_ref in refs:
+        assert float(loss.detach()) == pytest.approx(float(v_ref), rel=1e-5)
+        np.testing.assert_allclose(grad.numpy(), np.asarray(g_ref),
+                                   rtol=1e-4, atol=1e-6)
+    # the noobj lane's gradient carries the sigmoid's factor; under
+    # 'hybrid' BCE-with-logits reads the sigmoided value (a second sigmoid)
+    s = 1.0 / (1.0 + np.exp(-z.astype(np.float64)))
+    t6 = yt.reshape(-1, 8)[:, 6]
+    s6 = s.reshape(-1, 8)[:, 6]
+    d6 = (1.0 / (1.0 + np.exp(-s6)) - t6 if loss_type == "hybrid"
+          else 2.0 * (s6 - t6))
+    want6 = W.noobj * d6 / yt.size * s6 * (1.0 - s6)
+    np.testing.assert_allclose(grad.numpy().reshape(-1, 8)[:, 6], want6,
+                               rtol=1e-4, atol=1e-9)
+
+
+@pytest.mark.parametrize("loss_type", LOSS_TYPES)
+def test_fused_ss_is_the_composition(loss_type):
+    """On the CPU the 'ss' route is the parent's composition,
+    `SelectiveSigmoid` then the fused loss: the loss bit for bit, the
+    gradient bit for bit at g = 1 and within rel 1e-6 at g = 3 (g
+    multiplies before the sigmoid's factor there, after it here)."""
+    yt, z = (torch.from_numpy(a) for a in _ss_inputs(11, 3, 8 * 37))
+    p, q = (z.clone().requires_grad_(True) for _ in range(2))
+    fused = spnet_loss_fused(yt, p, W, loss_type, selective_sigmoid=True)
+    composed = spnet_loss_fused(yt, SelectiveSigmoid.apply(q), W, loss_type)
+    assert torch.equal(fused.detach(), composed.detach())
+    for g in (1.0, 3.0):
+        (a,) = torch.autograd.grad(fused, p, torch.tensor(g),
+                                   retain_graph=True)
+        (b,) = torch.autograd.grad(composed, q, torch.tensor(g),
+                                   retain_graph=True)
+        if g == 1.0:
+            assert torch.equal(a, b)
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("mode", ["no_grad", "requires_grad"])
+def test_fused_ss_keeps_a_gradient_only_when_one_is_needed(mode):
+    yt, z = (torch.from_numpy(a) for a in _ss_inputs(12, 2, 576))
+    p = z.clone().requires_grad_(True)
+    if mode == "no_grad":
+        with torch.no_grad():
+            loss = spnet_loss_fused(yt, p, selective_sigmoid=True)
+        assert loss.grad_fn is None
+    else:
+        loss = spnet_loss_fused(yt, p, selective_sigmoid=True)
+        (kept,) = loss.grad_fn.saved_tensors
+        assert kept.shape == z.shape
+    assert float(loss.detach()) == float(
+        spnet_loss(yt, torch.where(torch.arange(576) % 8 == 6,
+                                   torch.sigmoid(z), z)))

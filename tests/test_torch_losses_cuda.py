@@ -1,6 +1,7 @@
 """The loss kernel (K2 and K3 in one pass) and the backward's scale kernel
 against the plain PyTorch twin, on the card, eagerly and replayed from a
-CUDA graph.  No jax here; run this file on the card without
+CUDA graph; and its 'ss' variant (the selective sigmoid K4 in the same
+pass) against K4's own kernels followed by the loss kernel.  No jax here; run this file on the card without
 the suite's conftest (which sets JAX up):
 
     python -m pytest --noconftest tests/test_torch_losses_cuda.py -q
@@ -11,6 +12,9 @@ import pytest
 import torch
 
 from spnet_tpu_torch.config import LossWeights
+from spnet_tpu_torch.ops import losses
+from spnet_tpu_torch.ops.activations import selective_sigmoid_bwd, \
+    selective_sigmoid_fwd
 from spnet_tpu_torch.ops.losses import (
     spnet_loss,
     spnet_loss_bwd,
@@ -157,3 +161,96 @@ def test_first_call_under_capture_raises(cuda):
     with pytest.raises(RuntimeError, match="eagerly"):
         with torch.cuda.graph(graph, stream=s):
             spnet_loss_fwd(yt, yp)
+
+
+def _ss_args(b, m, device, offset=0):
+    """Targets as `_args` gives them and head pre-activations z = 4 randn
+    (the sigmoid's tails are reached), on the device; `offset` as there."""
+    yt, _ = _args(b, m, device, offset)
+    g = torch.Generator().manual_seed(b * 1000 + m + 1)
+    buf = torch.empty(b * m + offset, device=device)
+    z = buf[offset:].view(b, m).copy_(4 * torch.randn(b, m, generator=g))
+    return yt, z
+
+
+def _ss_step(yt, z, g, loss_type="same"):
+    """The fused 'ss' route: loss and gradient with respect to z."""
+    p = z.detach().clone().requires_grad_(True)
+    loss = spnet_loss_fused(yt, p, W, loss_type, selective_sigmoid=True)
+    return loss, torch.autograd.grad(loss, p, g)[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("loss_type", ["same", "hybrid"])
+@pytest.mark.parametrize("shape,offset", [
+    ((128, 576), 0),     # the training batch
+    ((3, 8 * 37), 0),    # ragged last block
+    ((5, 8 * 250), 1),   # ragged, and misaligned: the scalar path
+])
+def test_ss_variant_is_k4_then_k2(cuda, shape, offset, loss_type):
+    """The 'ss' route, one launch forward and one backward, against the
+    parent's four: K4's forward, the loss kernel, the gradient scaled by g,
+    K4's backward.  The same values meet the same arithmetic, so the loss
+    is bitwise equal, and so is the gradient at g = 1; at g = 0.75 the
+    scale by g comes after the sigmoid's factor in place of before it:
+    rel 1e-6 of max|grad|.  The standalone form (g given to the kernel)
+    scales before that factor, as the parent does: bitwise."""
+    yt, z = _ss_args(*shape, cuda, offset)
+    counts = (spnet_loss_fwd.launches, spnet_loss_fwd.ss_launches,
+              spnet_loss_bwd.launches, selective_sigmoid_fwd.launches,
+              selective_sigmoid_bwd.launches)
+    loss, grad = _ss_step(yt, z, torch.ones((), device=cuda), loss_type)
+    torch.cuda.synchronize()
+    assert (spnet_loss_fwd.launches, spnet_loss_fwd.ss_launches,
+            spnet_loss_bwd.launches, selective_sigmoid_fwd.launches,
+            selective_sigmoid_bwd.launches) == \
+        (counts[0] + 1, counts[1] + 1, counts[2] + 1, *counts[3:])
+    s = selective_sigmoid_fwd(z)
+    assert torch.equal(loss, spnet_loss_fwd(yt, s, W, loss_type))
+    for gv in (1.0, 0.75):
+        g = torch.full((), gv, device=cuda)
+        ref = selective_sigmoid_bwd(s, spnet_loss_bwd(yt, s, g, W, loss_type))
+        got = grad if gv == 1.0 else _ss_step(yt, z, g, loss_type)[1]
+        if gv == 1.0:
+            assert torch.equal(got, ref)
+        assert (got - ref).abs().max() <= 1e-6 * ref.abs().max()
+        alone = torch.empty_like(z)
+        losses._launch(yt, z, g, alone, None, W, loss_type, ss=True)
+        assert torch.equal(alone, ref)
+
+
+@pytest.mark.cuda
+def test_ss_graph_replays_are_bitwise_eager(cuda):
+    """The 'ss' route's forward and backward captured into one CUDA graph
+    after an eager call on the capturing stream: three replays give the
+    eager loss and gradient bit for bit, and so does a call after them."""
+    yt, z = _ss_args(128, 576, cuda)
+    g = torch.full((), 0.75, device=cuda)
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        eager = _ss_step(yt, z, g)
+    torch.cuda.current_stream().wait_stream(s)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=s):
+        static = _ss_step(yt, z, g)
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(static[0], eager[0])
+        assert torch.equal(static[1], eager[1])
+    after = _ss_step(yt, z, g)
+    assert torch.equal(after[0], eager[0]) and torch.equal(after[1], eager[1])
+
+
+@pytest.mark.cuda
+def test_ss_first_call_under_capture_raises(cuda):
+    """The 'ss' variant shares the loss's workspace rule: a first call on
+    a fresh stream under capture raises."""
+    yt, z = _ss_args(16, 576, cuda)
+    p = z.clone().requires_grad_(True)
+    s = torch.cuda.Stream()
+    graph = torch.cuda.CUDAGraph()
+    with pytest.raises(RuntimeError, match="eagerly"):
+        with torch.cuda.graph(graph, stream=s):
+            spnet_loss_fused(yt, p, selective_sigmoid=True)
