@@ -86,7 +86,23 @@ check raises and the run exits non-zero:
                then the
                compound head (Xception-331) and MobileNet-331, bf16, each
                served (b=16) and trained (b=128, 2 epochs) the same way,
-               with their frames/s and train images/s.
+               with their frames/s and train images/s;
+  8. zoo     - DarkNet19, InceptionResNetV2 and NASNetMobile at 331, bf16
+               compute with f32 params, each served (port checkpoint, the
+               CLI's loader, 64 frames at b=16) and trained (b=128, 2
+               epochs of 4 steps, then resumed to 3), with every launch
+               count checked (no K1 or K4; K2 = K3 = train steps); one f32
+               step with the kernel loss against the plain twin; the f32
+               eval output on the card against the same model on the CPU
+               on 2 frames (TF32 off, rel ZOO_CPU_RTOL); predict frames/s,
+               train images/s and the peak of `max_memory_allocated` of
+               each path;
+  9. tta     - the flip ensemble (direct + h, v, hv) on Xception-331 from a
+               port checkpoint: `predict_tta` over 64 frames at b=16 (K1 34
+               per batch per view, warm-ups included, finite merged
+               predictions), then `evaluate_network(..., tta="h,v,hv")` on
+               the same frames (its own sweep batch, 64) with its launch
+               count and metrics; the ensemble frames/s of both.
 
 Every model path runs with all five launch counts (and the loss kernel's
 count of 'ss' launches) set to 0 just before it and checks them all just
@@ -159,6 +175,11 @@ SIGMOID_RTOL = 1e-6  # K4 vs twin: the same float32 formula, expf vs exp
 SS_GRAD_RTOL = 1e-6
 TRAIN_BATCH, TRAIN_FRAMES, VAL_FRAMES = 128, 512, 256
 DEVICE = "cuda"
+# f32 eval, the card (cuDNN, cuBLAS, TF32 off) against the CPU: the same
+# formulas, summed in other orders
+ZOO_CPU_RTOL = 1e-4
+ZOO_BACKBONES = ("DarkNet19", "InceptionResNetV2", "NASNetMobile")
+TTA_MODES = ("h", "v", "hv")
 
 
 def fail(msg: str):
@@ -1087,6 +1108,154 @@ def phase_heads(seed: int, smi: str) -> dict:
     return out
 
 
+def _card_vs_cpu(model_cfg, state: dict, x, tag: str) -> float:
+    """The same weights in float32, eval mode, on the card and on the CPU:
+    relative error <= ZOO_CPU_RTOL of the CPU output's scale."""
+    import dataclasses
+
+    from spnet_tpu_torch.models.spnet import build_model
+    from spnet_tpu_torch.train.steps import make_predict_step
+
+    cfg = dataclasses.replace(model_cfg, compute_dtype="float32",
+                              backbone_dtype="")
+    outs = []
+    for device in (DEVICE, "cpu"):
+        m = build_model(cfg, device=device)
+        m.load_state_dict(state)
+        outs.append(make_predict_step(m)(torch.from_numpy(x).to(device))
+                    .float().cpu())
+        del m
+    err = (outs[0] - outs[1]).abs().max().item()
+    rel = err / max(outs[1].abs().max().item(), 1e-30)
+    print(f"[{tag}] float32 eval on the card vs the CPU, {len(x)} frames: "
+          f"max_abs_err {err:.3e} (rel {rel:.2e}, tol {ZOO_CPU_RTOL})")
+    if not (torch.isfinite(outs[0]).all() and rel <= ZOO_CPU_RTOL):
+        fail(f"{tag}: float32 eval, card vs CPU relative error {rel}")
+    return rel
+
+
+def phase_zoo(seed: int, smi: str) -> dict:
+    """DarkNet19, InceptionResNetV2 and NASNetMobile at 331: served,
+    trained with a resume, one f32 step with the kernel loss against the
+    twin, and the f32 eval output on the card against the CPU."""
+    import dataclasses
+
+    from spnet_tpu_torch.config import (
+        ExperimentConfig, ModelConfig, TrainConfig,
+    )
+
+    train_cfg = TrainConfig(batch_size=TRAIN_BATCH, epochs=2, save_every=1,
+                            seed=seed)
+    train_ds = val_ds = None
+    out = {}
+    gib = 2.0 ** 30
+    for backbone in ZOO_BACKBONES:
+        tag = f"zoo {backbone}"
+        cfg = ExperimentConfig(model=ModelConfig(backbone=backbone),
+                               train=train_cfg)
+        torch.cuda.reset_peak_memory_stats()
+        model, x, _, _, fps, _ = _serve(cfg, seed, smi, tag)
+        serve_mem = torch.cuda.max_memory_allocated() / gib
+        state = {k: v.cpu() for k, v in model.state_dict().items()}
+        del model
+        rel = _card_vs_cpu(cfg.model, state, x[:2], tag)
+        if train_ds is None:
+            train_ds, val_ds = _seeded_split(
+                (TRAIN_FRAMES, VAL_FRAMES), cfg.model.input_size, cfg.grid,
+                seed)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        with tempfile.TemporaryDirectory() as tmp:
+            st, hist, counts = _train_run(cfg, train_ds, val_ds, tmp, smi,
+                                          tag)
+            train_mem = torch.cuda.max_memory_allocated() / gib
+            del st
+            cfg3 = dataclasses.replace(cfg, train=dataclasses.replace(
+                cfg.train, epochs=3))
+            st, _, _ = _train_run(cfg3, train_ds, val_ds, tmp, smi, tag)
+            steps = 3 * (TRAIN_FRAMES // TRAIN_BATCH)
+            if st.step != steps or st.opt_state.count != steps:
+                fail(f"{tag}: resumed run ended at step {st.step}, count "
+                     f"{st.opt_state.count}")
+            del st
+        torch.cuda.empty_cache()
+        x16 = torch.from_numpy(train_ds.x[:16]).to(DEVICE)
+        y16 = torch.from_numpy(train_ds.y[:16]).to(DEVICE)
+        step_counts = _f32_step_agreement(
+            dataclasses.replace(cfg.model, compute_dtype="float32"), x16,
+            y16, seed, tag, swap="loss")
+        if step_counts != _want_counts(cfg.model, train_steps=1):
+            fail(f"{tag}: f32 step launches {step_counts}")
+        del x16, y16
+        torch.cuda.empty_cache()
+        out[backbone] = dict(size=cfg.model.input_size, predict_fps=fps,
+                             img_per_sec=hist[-1]["img_per_sec"],
+                             serve_gib=serve_mem, train_gib=train_mem,
+                             train_counts=counts, cpu_rel=rel)
+    for backbone, r in out.items():
+        print(f"[zoo] {backbone}-{r['size']} bf16: predict "
+              f"{r['predict_fps']:.1f} "
+              f"frames/s at b=16 (peak {r['serve_gib']:.2f} GiB), train "
+              f"{r['img_per_sec']:.1f} images/s at b={TRAIN_BATCH} (epoch "
+              f"2; peak {r['train_gib']:.2f} GiB)  [{smi}]")
+    return out
+
+
+def phase_tta(seed: int, smi: str) -> dict:
+    """The flip ensemble on Xception-331 from a port checkpoint: predict_tta
+    at b=16, then evaluate_network(..., tta='h,v,hv')."""
+    from spnet_tpu_torch.config import ExperimentConfig
+    from spnet_tpu_torch.data.dataset import Dataset
+    from spnet_tpu_torch.eval.evaluate import evaluate_network
+    from spnet_tpu_torch.eval.tta import predict_tta
+    from spnet_tpu_torch.train.steps import make_predict_step
+
+    cfg = ExperimentConfig()  # Xception-331, bf16 compute, f32 params
+    model, x, y, _, _, _ = _serve(cfg, seed, smi, "tta")
+    n, views = len(x), 1 + len(TTA_MODES)
+    xd = torch.from_numpy(x).to(DEVICE)
+    _zero_counts()
+    y_tta, fps = predict_tta(make_predict_step(model), xd, 16, DEVICE,
+                             cfg.grid, modes=TTA_MODES)
+    counts = _counts()
+    want = _want_counts(cfg.model, predict_batches=views * (-(-n // 16) + 1))
+    print(f"[tta] predict_tta, direct + {TTA_MODES}, {n} frames at b=16: "
+          f"{fps:.1f} frames/s over all views (time to host values)  "
+          f"[{smi}]")
+    print(f"[tta] launches in that run (a warm-up batch per view): {counts}")
+    if counts != want:
+        fail(f"tta: predict_tta launches {counts} != {want}")
+    if y_tta.shape != (n, cfg.grid.num_outputs) or \
+            not np.isfinite(y_tta).all():
+        fail(f"tta: merged predictions of shape {y_tta.shape}, finite "
+             f"{np.isfinite(y_tta).all()}")
+    ds = Dataset(x=x, y=y, grid=cfg.grid,
+                 file_list=[f"synthetic://{seed}/{i}" for i in range(n)])
+    infer_bs = max(cfg.train.batch_size, min(256, n))  # evaluate's own
+    _zero_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        res = evaluate_network(cfg, model, ds, DEVICE, log_dir=tmp,
+                               num_draw=0, tta=",".join(TTA_MODES),
+                               verbose=0)
+    eval_counts = _counts()
+    want = _want_counts(cfg.model,
+                        predict_batches=views * (-(-n // infer_bs) + 1))
+    print(f"[tta] evaluate_network(tta='h,v,hv'), {n} frames at its sweep "
+          f"batch {infer_bs}: {res['fps']:.1f} frames/s over all views, mAP "
+          f"{res['mAP']:.6f}, mean_pix_err {res['mean_pix_err']:.3f} "
+          f"(random weights); launches {eval_counts}  [{smi}]")
+    if eval_counts != want:
+        fail(f"tta: evaluate launches {eval_counts} != {want}")
+    if not (np.isfinite(res["mAP"]) and np.isfinite(res["mean_pix_err"])
+            and res["total_obj"] > 0):
+        fail(f"tta: metrics {res}")
+    del model
+    torch.cuda.empty_cache()
+    return dict(predict_fps=fps, eval_fps=res["fps"],
+                launches=counts["sepconv_infer"],
+                eval_launches=eval_counts["sepconv_infer"])
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--seed", type=int, default=0)
@@ -1106,9 +1275,13 @@ def main(argv=None):
     train = phase_train(args.seed, smi)
     k4 = phase_k4(args.seed, smi)
     heads = phase_heads(args.seed, smi)
+    zoo = phase_zoo(args.seed, smi)
+    tta = phase_tta(args.seed, smi)
     print(f"[done] {time.perf_counter() - t0:.1f} s after the device phase; "
-          f"train {train['img_per_sec']:.1f} images/s at b={TRAIN_BATCH} "
-          f"[{smi}]")
+          f"train {train['img_per_sec']:.1f} images/s at b={TRAIN_BATCH}; "
+          f"zoo train images/s "
+          f"{ {b: round(r['img_per_sec'], 1) for b, r in zoo.items()} }; "
+          f"TTA {tta['predict_fps']:.1f} frames/s  [{smi}]")
     # K2-K4 at their timed shapes (TRAIN_BATCH x 576 float32): each input
     # read once, each output written once; their few operations an element
     # are far below the bytes' time.  ms: device time per call from a CUDA
@@ -1142,6 +1315,9 @@ def main(argv=None):
         "bound_by": kern["bound_by"],
         "library_ms": kern["library_ms"],
         "graph_ms": kern["graph_ms"],  # the b=16 batch from a CUDA graph
+        # phase 9: predict_tta at b=16 and evaluate_network's TTA sweep
+        "tta_launches": tta["launches"],
+        "tta_eval_launches": tta["eval_launches"],
     },
         # the loss alone; the train step's forward also writes the
         # gradient (fused_ms, fused_bound_ms)
@@ -1156,13 +1332,17 @@ def main(argv=None):
               ss_launches=heads["ss"]["train_counts"][SS_COUNT],
               ss_max_abs_err=loss_ss["err"],
               ss_step_ms=loss_ss["ss_step"]["ms"],
-              ss_step_composed_ms=loss_ss["ss_step_composed"]["ms"]),
+              ss_step_composed_ms=loss_ss["ss_step_composed"]["ms"],
+              zoo_launches={b: r["train_counts"]["spnet_loss_fwd"]
+                            for b, r in zoo.items()}),
         # g * dloss/dy_pred from y_true, y_pred and g; the train step's
         # backward scales the kept gradient (scale_ms, scale_bound_ms)
         small("spnet_loss_bwd", loss_src, "spnet_tpu/ops/losses.py:176",
               train["bwd_launches"], loss["bwd_err"], loss["bwd"],
               loss["bwd_plain"], 3 * n + 4, scale_ms=loss["scale"]["ms"],
-              scale_bound_ms=1e3 * (2 * n + 4) / HBM_BYTES_PER_S),
+              scale_bound_ms=1e3 * (2 * n + 4) / HBM_BYTES_PER_S,
+              zoo_launches={b: r["train_counts"]["spnet_loss_bwd"]
+                            for b, r in zoo.items()}),
         small("selective_sigmoid_fwd", k4_src, k4_at,
               heads["ss"]["predict_counts"]["selective_sigmoid_fwd"],
               k4["fwd_err"], k4["fwd"], k4["fwd_plain"], 2 * n),

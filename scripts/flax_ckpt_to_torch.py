@@ -13,9 +13,10 @@ port's `ExperimentConfig` through `experiment.json`'s text), maps every
 flax leaf onto the port's state dict
 (`spnet_tpu_torch.convert.flax_to_state_dict`, which refuses leftover or
 missing leaves) and writes `<out>/state.pt` + `experiment.json`.  The
-config must be one the port builds (`build_model` raises for the others:
-the InceptionResNetV2, NASNetMobile and DarkNet19 backbones, remat, the
-planar and fused stems).
+config must be one the port builds: any of the six backbones (Xception,
+MobileNet, MobileNetTiny, DarkNet19, InceptionResNetV2, NASNetMobile) and
+the three heads; `build_model` raises for remat and the planar and fused
+stems.
 """
 
 import argparse

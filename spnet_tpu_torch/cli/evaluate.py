@@ -2,8 +2,8 @@
 dataset.
 
 Flags mirror `spnet_tpu/cli/evaluate.py` (reference
-`evaluate_spnet.py:97-111`), plus `--device`.  `--tta` is not ported yet
-and raises.
+`evaluate_spnet.py:97-111`), plus `--device`.  `--tta h,v,hv` ensembles
+flipped views with the direct one (`eval/tta.py`).
 """
 
 from __future__ import annotations
@@ -36,8 +36,8 @@ def main(argv=None):
     p.add_argument("--no-map", action="store_true",
                    help="skip the (rasterized-IoU) mAP computation")
     p.add_argument("--tta", default="",
-                   help="flip test-time augmentation (not ported yet: "
-                        "any value raises)")
+                   help="test-time flip augmentation: comma-separated "
+                        "modes from h,v,hv (e.g. 'h,v,hv'); empty = off")
     add_device_arg(p)
     args = p.parse_args(argv)
 

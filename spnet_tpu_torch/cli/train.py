@@ -2,10 +2,11 @@
 
 Flags mirror `spnet_tpu/cli/train.py` (reference `train_spnet.py:96-112`),
 plus `--device` (default `cuda`).  Training runs on the device-resident
-feed on one device; `--geo_augment`, `--use_tb`, `--profile`,
-`--epoch_repeats` other than 1 and `--predict_dir` are not ported yet and
-raise.  After training it evaluates on Test/ (Val/ when there is no
-Test/), and writes the final weights into the log directory.
+feed on one device; `--geo_augment`, `--use_tb`, `--profile` and
+`--epoch_repeats` other than 1 are not ported yet and raise.  After
+training it evaluates on Test/ (Val/ when there is no Test/), predicts over
+`--predict_dir` into `<log_dir>/predict/` when that is given, and writes
+the final weights into the log directory.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ from spnet_tpu_torch.cli.common import (
     timestamped_log_dir,
 )
 from spnet_tpu_torch.eval.evaluate import evaluate_network
+from spnet_tpu_torch.eval.predict import predict_network
 from spnet_tpu_torch.io.checkpoint import save_train_state
 from spnet_tpu_torch.data.dataset import build_dataset
 from spnet_tpu_torch.train.loop import train_network
@@ -34,7 +36,6 @@ def _refuse_unported(args) -> None:
         ("--use_tb", args.use_tb),
         ("--profile", args.profile),
         ("--epoch_repeats", args.epoch_repeats != 1),
-        ("--predict_dir", bool(args.predict_dir)),
     ) if bad]
     if flags:
         raise NotImplementedError(
@@ -72,8 +73,10 @@ def main(argv=None):
     p.add_argument("--no-eval", action="store_true",
                    help="skip the post-training evaluation")
     p.add_argument("--predict_dir", default="",
-                   help="label-free prediction after evaluation (not "
-                        "ported yet: any value raises)")
+                   help="after evaluation, run label-free prediction over "
+                        "this directory (the reference chains predict "
+                        "over Zooniverse data, train_spnet.py:141-143); "
+                        "skipped when empty or missing")
     p.add_argument("--drop-overflow", action="store_true",
                    help="tolerate >preds_per_cell ellipses in a grid "
                         "cell (drop extras) instead of failing")
@@ -114,6 +117,18 @@ def main(argv=None):
                                 input_size=size)
         evaluate_network(cfg, state.model, test_ds, device,
                          log_dir="logs/Evaluation/")
+
+    # chain label-free prediction over real data (reference
+    # `train_spnet.py:141-143` predicts over the Zooniverse set)
+    if args.predict_dir:
+        if os.path.isdir(args.predict_dir):
+            print("\n----------------------------\n"
+                  "Starting prediction...")
+            predict_network(cfg, state.model, args.predict_dir, device,
+                            log_dir=os.path.join(log_dir, "predict") +
+                            os.sep, batch_size=args.batch_size)
+        else:
+            print(f"(predict skipped: {args.predict_dir} not found)")
 
     final_dir = os.path.join(log_dir, "final_weights")
     save_train_state(final_dir, state, cfg)

@@ -4,10 +4,14 @@ The port's modules carry the flax scope names, so the conversion is one
 transform per leaf:
 
   conv kernel         (kh, kw, I, O) HWIO  -> (O, I, kh, kw) OIHW
-  depthwise kernel    (3, 3, 1, C)         -> (3, 3, C)
-  pointwise kernel    (1, 1, C, F)         -> (C, F)
+  depthwise kernel    (k, k, 1, C)         -> (k, k, C)   (scope `depthwise`
+                                              or NASNet's `sep*_dw`)
+  pointwise kernel    (1, 1, C, F)         -> (C, F)      (`pointwise`,
+                                              `sep*_pw`)
   Dense kernel        (in, out)            -> (out, in)
+  conv / Dense bias   (out,)               -> bias
   BN scale / bias / mean / var -> weight / bias / running_mean / running_var
+  (a gamma-less BN has no scale leaf, and its module no weight)
 
 `flax_to_state_dict` checks the result against a model: every flax leaf
 must land on a key of the model, with the model's shape, and every key of
@@ -40,12 +44,14 @@ def _leaves(tree: Mapping, prefix: tuple = ()):
 def _convert_leaf(path: tuple, leaf: np.ndarray) -> tuple[str, np.ndarray]:
     *scope, name = path
     if name == "kernel":
-        if leaf.ndim == 4 and scope[-1] == "depthwise":
-            if leaf.shape[:3] != (3, 3, 1):
+        if leaf.ndim == 4 and (scope[-1] == "depthwise"
+                               or scope[-1].endswith("_dw")):
+            if leaf.shape[2] != 1 or leaf.shape[0] != leaf.shape[1]:
                 raise ValueError(f"{'/'.join(path)}: depthwise kernel "
-                                 f"{leaf.shape} is not (3, 3, 1, C)")
+                                 f"{leaf.shape} is not (k, k, 1, C)")
             out = leaf[:, :, 0, :]
-        elif leaf.ndim == 4 and scope[-1] == "pointwise":
+        elif leaf.ndim == 4 and (scope[-1] == "pointwise"
+                                 or scope[-1].endswith("_pw")):
             out = leaf[0, 0]
         elif leaf.ndim == 4:
             out = leaf.transpose(3, 2, 0, 1)

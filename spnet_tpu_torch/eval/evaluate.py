@@ -2,7 +2,8 @@
 overlay renders + Zooniverse CSV.
 
 Counterpart of `spnet_tpu/eval/evaluate.py` (reference
-`evaluate_spnet.py:38-94`), without test-time augmentation so far.
+`evaluate_spnet.py:38-94`), with flip test-time augmentation
+(`tta="h,v,hv"`, `eval/tta.py`).
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ import numpy as np
 import torch
 
 from spnet_tpu_torch.eval.metrics import calc_errors, calc_map
+from spnet_tpu_torch.eval.tta import predict_tta
 from spnet_tpu_torch.config import IND_NOOBJ, VARS_PER_PRED, ExperimentConfig
 from spnet_tpu_torch.data.dataset import Dataset
 from spnet_tpu_torch.grid import denormalize
@@ -32,10 +34,9 @@ def evaluate_network(
     tta: str = "",
     verbose: int = 1,
 ) -> dict:
-    """Returns a metrics dict (mAP, accuracies, pixel error, FPS)."""
-    if tta:
-        raise NotImplementedError(
-            "test-time augmentation is not ported to spnet_tpu_torch yet")
+    """Returns a metrics dict (mAP, accuracies, pixel error, FPS).  tta:
+    comma-separated flip modes ('h', 'v', 'hv') ensembled with the direct
+    view; fps is then frames over the time of all views."""
     os.makedirs(log_dir, exist_ok=True)
     # eval predictions do not depend on the batch size: sweep the test set
     # in large batches, as the JAX package does
@@ -45,11 +46,23 @@ def evaluate_network(
     x_eval = test_ds.x
     if getattr(x_eval, "nbytes", 0) < 4 * 1024**3:
         x_eval = torch.as_tensor(np.asarray(x_eval)).to(device)
-    y_pred, fps = predict_in_batches(
-        make_predict_step(model), x_eval, infer_bs, device, verbose=verbose)
+    predict_fn = make_predict_step(model)
+    decode = None
     if cfg.model.loss_type != "same":  # 'hybrid': noobj is a logit
-        y_pred[:, IND_NOOBJ::VARS_PER_PRED] = 1.0 / (
-            1.0 + np.exp(-y_pred[:, IND_NOOBJ::VARS_PER_PRED]))
+        decode = lambda z: 1.0 / (1.0 + np.exp(-z))  # noqa: E731
+    if tta:
+        modes = tuple(m for m in tta.split(",") if m)
+        y_pred, fps = predict_tta(predict_fn, x_eval, infer_bs, device,
+                                  cfg.grid, modes=modes, decode_noobj=decode,
+                                  verbose=verbose)
+        if verbose:
+            print(f"    TTA ensemble over views: direct + {modes}")
+    else:
+        y_pred, fps = predict_in_batches(predict_fn, x_eval, infer_bs,
+                                         device, verbose=verbose)
+        if decode is not None:
+            y_pred[:, IND_NOOBJ::VARS_PER_PRED] = decode(
+                y_pred[:, IND_NOOBJ::VARS_PER_PRED])
     yt = denormalize(test_ds.y, cfg.grid)
     yp = denormalize(y_pred, cfg.grid)
 

@@ -11,7 +11,9 @@ In train mode BatchNorm normalizes with the batch statistics and updates
 its running statistics as flax does, and a separable conv runs its plain
 composition through autograd; in eval mode Xception's separable conv is
 one `sepconv_infer` call (the fused kernel on the card), and MobileNet's
-strided, BN-between variant its plain composition.
+strided, BN-between variant its plain composition.  The pools are flax's:
+SAME max pools pad with -inf, stride-1 SAME average pools divide by the
+real cells only, and VALID pools drop what does not fill a window.
 """
 
 from __future__ import annotations
@@ -44,39 +46,69 @@ def glorot_uniform_(w: torch.Tensor, fan_in: int, fan_out: int,
 
 class Kernel(nn.Module):
     """A weight in the port's layout, with the fans flax computes for it
-    (`variance_scaling(in_axis=-2, out_axis=-1)` on the flax shape)."""
+    (`variance_scaling(in_axis=-2, out_axis=-1)` on the flax shape), and
+    with `bias` a zero-initialized bias over the last flax axis (flax
+    `nn.Conv(use_bias=True)`)."""
 
-    def __init__(self, shape: tuple[int, ...], fan_in: int, fan_out: int):
+    def __init__(self, shape: tuple[int, ...], fan_in: int, fan_out: int,
+                 bias: bool = False):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(shape))
+        self.bias = nn.Parameter(torch.empty(shape[0])) if bias else None
         self.fan_in, self.fan_out = fan_in, fan_out
 
     def reset_parameters(self, generator: torch.Generator | None = None):
         glorot_uniform_(self.weight, self.fan_in, self.fan_out, generator)
+        if self.bias is not None:
+            with torch.no_grad():
+                self.bias.zero_()
+
+
+def conv_kernel(in_ch: int, features: int, kernel: int | tuple[int, int],
+                bias: bool = False) -> Kernel:
+    """An OIHW conv kernel with the fans of flax's (kh, kw, I, O) one."""
+    kh, kw = (kernel, kernel) if isinstance(kernel, int) else kernel
+    return Kernel((features, in_ch, kh, kw), fan_in=in_ch * kh * kw,
+                  fan_out=features * kh * kw, bias=bias)
+
+
+def depthwise_kernel(channels: int, k: int = 3) -> Kernel:
+    """A (k, k, C) depthwise kernel; flax's is (k, k, 1, C), with fan_in
+    k² and fan_out k²·C."""
+    return Kernel((k, k, channels), fan_in=k * k, fan_out=k * k * channels)
+
+
+def pointwise_kernel(in_ch: int, features: int) -> Kernel:
+    """A (C, F) pointwise kernel; flax's is (1, 1, C, F)."""
+    return Kernel((in_ch, features), fan_in=in_ch, fan_out=features)
 
 
 class BatchNorm(nn.Module):
     """BatchNorm over the last (channel) axis: flax `scale`, `bias`,
     `mean`, `var` become `weight`, `bias`, `running_mean`, `running_var`.
 
-    Train mode follows flax 0.12's `nn.BatchNorm(momentum=0.99,
-    epsilon=1e-3)`: statistics reduced in float32, the fast variance
-    E[x^2] - E[x]^2 clamped at 0, normalization with that biased
-    variance, and running statistics r = 0.99 r + 0.01 batch, also with
-    the biased variance (`F.batch_norm` would update with the unbiased
-    one)."""
+    Train mode follows flax 0.12's `nn.BatchNorm(momentum, epsilon=1e-3)`:
+    statistics reduced in float32, the fast variance E[x^2] - E[x]^2
+    clamped at 0, normalization with that biased variance, and running
+    statistics r = momentum r + (1 - momentum) batch, also with the biased
+    variance (`F.batch_norm` would update with the unbiased one).
+    `momentum` is flax's (0.99 by default, NASNet's 0.9997), torch's
+    1 - momentum.  scale=False is flax `use_scale=False` (Inception-ResNet-
+    v2's gamma-less BN): no `weight` at all."""
 
-    def __init__(self, features: int, eps: float = BN_EPS):
+    def __init__(self, features: int, eps: float = BN_EPS,
+                 momentum: float = BN_MOMENTUM, scale: bool = True):
         super().__init__()
-        self.eps = eps
-        self.weight = nn.Parameter(torch.ones(features))
+        self.eps, self.momentum = eps, momentum
+        self.weight = nn.Parameter(torch.ones(features)) if scale else None
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
 
     def reset_parameters(self, generator: torch.Generator | None = None):
         with torch.no_grad():
-            self.weight.fill_(1.0)
+            if self.weight is not None:
+                self.weight.fill_(1.0)
             self.bias.zero_()
             self.running_mean.zero_()
             self.running_var.fill_(1.0)
@@ -94,14 +126,16 @@ class BatchNorm(nn.Module):
             var = torch.clamp_min(torch.square(xf).mean(dims)
                                   - torch.square(mean), 0.0)
             with torch.no_grad():
-                m = BN_MOMENTUM
+                m = self.momentum
                 self.running_mean.copy_(m * self.running_mean
                                         + (1 - m) * mean)
                 self.running_var.copy_(m * self.running_var + (1 - m) * var)
         else:
             mean, var = self.running_mean, self.running_var
         # flax's order: (x - mean) * (rsqrt(var + eps) * scale) + bias
-        mul = torch.rsqrt(var + self.eps) * self.weight
+        mul = torch.rsqrt(var + self.eps)
+        if self.weight is not None:
+            mul = mul * self.weight
         return ((xf - mean) * mul + self.bias).to(x.dtype)
 
 
@@ -113,27 +147,35 @@ def _same_pads(n: int, k: int, s: int) -> tuple[int, int]:
 
 
 def conv2d_nhwc(x, weight, stride: int = 1, padding: str = "SAME",
-                groups: int = 1):
-    """Conv of NHWC `x` with an OIHW kernel, through channels-last views
-    (cuDNN on the card, no copies of x).  SAME pads as TF does: (0, 1) on
-    an even size at stride 2."""
+                groups: int = 1, bias=None):
+    """Conv of NHWC `x` with an OIHW kernel (and a bias), through
+    channels-last views (cuDNN on the card, no copies of x).  SAME pads as
+    TF does: (0, 1) on an even size at stride 2, (k//2 - 1, k//2) for any
+    odd k."""
     xc = x.permute(0, 3, 1, 2)
     w = weight.to(x.dtype)
+    b = None if bias is None else bias.to(x.dtype)
     if padding == "SAME":
         kh, kw = weight.shape[2:]
         (ht, hb) = _same_pads(x.shape[1], kh, stride)
         (wl, wr) = _same_pads(x.shape[2], kw, stride)
         if ht == hb and wl == wr:
-            y = F.conv2d(xc, w, stride=stride, padding=(ht, wl),
+            y = F.conv2d(xc, w, b, stride=stride, padding=(ht, wl),
                          groups=groups)
         else:
-            y = F.conv2d(F.pad(xc, (wl, wr, ht, hb)), w, stride=stride,
+            y = F.conv2d(F.pad(xc, (wl, wr, ht, hb)), w, b, stride=stride,
                          groups=groups)
     elif padding == "VALID":
-        y = F.conv2d(xc, w, stride=stride, groups=groups)
+        y = F.conv2d(xc, w, b, stride=stride, groups=groups)
     else:
         raise ValueError(f"padding must be SAME or VALID, got {padding!r}")
     return y.permute(0, 2, 3, 1)
+
+
+def depthwise_conv_nhwc(x, dw, stride: int = 1):
+    """Depthwise k x k SAME conv of NHWC `x` with a (k, k, C) kernel."""
+    k = dw.permute(2, 0, 1).unsqueeze(1)  # (C, 1, k, k)
+    return conv2d_nhwc(x, k, stride, "SAME", groups=x.shape[-1])
 
 
 def max_pool_same(x, window: int = 3, stride: int = 2):
@@ -153,13 +195,49 @@ def avg_pool2_nhwc(x):
     return F.avg_pool2d(x.permute(0, 3, 1, 2), 2, 2).permute(0, 2, 3, 1)
 
 
+def max_pool_valid(x, window: int, stride: int):
+    """flax `max_pool((w, w), strides=(s, s))`, whose padding defaults to
+    VALID: DarkNet's 2x2/2 (165 -> 82) and Inception-ResNet-v2's 3x3/2."""
+    return F.max_pool2d(x.permute(0, 3, 1, 2), window,
+                        stride).permute(0, 2, 3, 1)
+
+
+def avg_pool3_same(x):
+    """flax `avg_pool((3, 3), strides=(1, 1), padding='SAME',
+    count_include_pad=False)`: an edge window is divided by its real cells
+    (Keras 'same' AveragePooling2D), not by 9 as torch's default is."""
+    return F.avg_pool2d(x.permute(0, 3, 1, 2), 3, 1, padding=1,
+                        count_include_pad=False).permute(0, 2, 3, 1)
+
+
+def pad_for_pool(x):
+    """NASNet's reduction-cell pad (Keras `ZeroPadding2D(correct_pad)` for
+    a 3x3 window): (1 if the size is odd else 0, 1) ZEROS on each spatial
+    axis.  The zeros are real cells for the VALID pool after it: counted
+    by the average, compared by the max."""
+    h, w = x.shape[1], x.shape[2]
+    return F.pad(x, (0, 0, w % 2, 1, h % 2, 1))
+
+
+def max_pool3_padded(x):
+    """NASNet's `_max3_padded`: zero pad, then a VALID 3x3/2 max pool."""
+    return max_pool_valid(pad_for_pool(x), 3, 2)
+
+
+def avg_pool3_padded(x):
+    """NASNet's `_avg3_padded`: zero pad, then a VALID 3x3/2 average."""
+    return F.avg_pool2d(pad_for_pool(x).permute(0, 3, 1, 2), 3,
+                        2).permute(0, 2, 3, 1)
+
+
 def leaky_relu_01(x):
     return F.leaky_relu(x, negative_slope=0.1)
 
 
 #: Activations a layer may end with, by name ("" = none).  ReLU6 is the
-#: JAX MobileNet's `min(relu(x), 6)`.
-ACTIVATIONS = {"": lambda x: x, "relu": F.relu, "relu6": F.relu6}
+#: JAX MobileNet's `min(relu(x), 6)`; "leaky" is DarkNet's LeakyReLU(0.1).
+ACTIVATIONS = {"": lambda x: x, "relu": F.relu, "relu6": F.relu6,
+               "leaky": leaky_relu_01}
 
 
 def _activation(act: str):
@@ -170,21 +248,23 @@ def _activation(act: str):
 
 
 class ConvBN(nn.Module):
-    """Conv -> BatchNorm (-> activation)."""
+    """Conv (k x k or kh x kw, SAME or VALID) -> BatchNorm (gamma-less when
+    not bn_scale) (-> activation): the JAX `ConvBN`'s fields that a model
+    of the port sets."""
 
-    def __init__(self, in_ch: int, features: int, kernel: int = 3,
-                 stride: int = 1, padding: str = "SAME", act: str = ""):
+    def __init__(self, in_ch: int, features: int,
+                 kernel: int | tuple[int, int] = 3, stride: int = 1,
+                 padding: str = "SAME", act: str = "",
+                 bn_scale: bool = True):
         super().__init__()
-        rf = kernel * kernel
-        self.conv = Kernel((features, in_ch, kernel, kernel),
-                           fan_in=in_ch * rf, fan_out=features * rf)
-        self.bn = BatchNorm(features)
+        self.conv = conv_kernel(in_ch, features, kernel)
+        self.bn = BatchNorm(features, scale=bn_scale)
         self.stride, self.padding = stride, padding
         self.act = _activation(act)
 
     def forward(self, x):
-        return self.act(self.bn(conv2d_nhwc(x, self.conv.weight, self.stride,
-                                            self.padding)))
+        return self.act(self.bn(conv2d_nhwc(
+            x, self.conv.weight, self.stride, self.padding)))
 
 
 class SeparableConvBN(nn.Module):
@@ -207,11 +287,10 @@ class SeparableConvBN(nn.Module):
         super().__init__()
         # flax kernels (3, 3, 1, C) and (1, 1, C, F), stored as (3, 3, C)
         # and (C, F): the layouts the kernel takes
-        self.depthwise = Kernel((3, 3, in_ch), fan_in=9, fan_out=9 * in_ch)
+        self.depthwise = depthwise_kernel(in_ch)
         if bn_between:
             self.bn_dw = BatchNorm(in_ch)
-        self.pointwise = Kernel((in_ch, features), fan_in=in_ch,
-                                fan_out=features)
+        self.pointwise = pointwise_kernel(in_ch, features)
         self.bn = BatchNorm(features)
         self.stride, self.bn_between, self.plain = stride, bn_between, plain
         self.act = _activation(act)
@@ -232,8 +311,7 @@ class SeparableConvBN(nn.Module):
         activation] -> pointwise matmul -> BN (-> activation) in x's type,
         through autograd; the BNs use batch statistics in train mode and
         the running ones in eval mode.  The JAX package's composition."""
-        k = self.depthwise.weight.permute(2, 0, 1).unsqueeze(1)  # (C,1,3,3)
-        y = conv2d_nhwc(x, k, self.stride, "SAME", groups=x.shape[-1])
+        y = depthwise_conv_nhwc(x, self.depthwise.weight, self.stride)
         if self.bn_between:
             y = self.act(self.bn_dw(y))
         z = self.bn(torch.matmul(y, self.pointwise.weight.to(x.dtype)))

@@ -8,7 +8,8 @@ Counterpart of `spnet_tpu/models/spnet.py`:
     -> + AvgPool(input)  (residual, broadcast 1 -> 3 channels)
     -> Dropout(0.1)      (identity in eval; in train mode its mask comes
                           from the generator passed to forward)
-    -> Xception | MobileNet | MobileNetTiny
+    -> Xception | MobileNet | MobileNetTiny | DarkNet19 | InceptionResNetV2
+       | NASNetMobile
     -> NHWC flatten -> float32 head:
          default        Dense(num_outputs) 'final_output'
          compound_head  Dense(S) 'sigmoid_output' -> sigmoid, and
@@ -23,7 +24,9 @@ Counterpart of `spnet_tpu/models/spnet.py`:
 The flatten is NHWC, as in JAX, so a converted head kernel needs no
 permutation, and the compound interleave is JAX's, so neither does the
 split head.  With both heads set, the noobj lanes go through two sigmoids,
-as in JAX.  `build_model` raises for what is not ported yet.
+as in JAX.  `build_model` raises ValueError for an unknown backbone, as
+JAX does, and NotImplementedError for what is not ported yet (remat, the
+planar and fused stems).
 """
 
 from __future__ import annotations
@@ -40,7 +43,10 @@ from spnet_tpu_torch.models.layers import (
     init_keras_,
     leaky_relu_01,
 )
+from spnet_tpu_torch.models.darknet import DarkNet19
+from spnet_tpu_torch.models.inception_resnet_v2 import InceptionResNetV2
 from spnet_tpu_torch.models.mobilenet import MobileNet
+from spnet_tpu_torch.models.nasnet import NASNetMobile
 from spnet_tpu_torch.models.xception import Xception
 from spnet_tpu_torch.ops.activations import SelectiveSigmoid, \
     selective_sigmoid_torch
@@ -48,11 +54,16 @@ from spnet_tpu_torch.config import (
     IND_NOOBJ, ORIG_IMG_HEIGHT, ORIG_IMG_WIDTH, VARS_PER_PRED, ModelConfig,
 )
 
-#: The ported backbones, each a constructor of (plain_kernels) -> module.
+#: The backbones, each a constructor of (plain_kernels, the backbone's
+#: input (h, w)) -> module; each module has LAYER_ORDER, FEATURES and
+#: output_hw.  Only NASNet's structure depends on the input size.
 BACKBONES = {
-    "Xception": lambda plain: Xception(in_ch=3, plain=plain),
-    "MobileNet": lambda plain: MobileNet(in_ch=3, width_mult=1.0),
-    "MobileNetTiny": lambda plain: MobileNet(in_ch=3, width_mult=0.125),
+    "Xception": lambda plain, hw: Xception(in_ch=3, plain=plain),
+    "MobileNet": lambda plain, hw: MobileNet(in_ch=3, width_mult=1.0),
+    "MobileNetTiny": lambda plain, hw: MobileNet(in_ch=3, width_mult=0.125),
+    "DarkNet19": lambda plain, hw: DarkNet19(in_ch=3),
+    "InceptionResNetV2": lambda plain, hw: InceptionResNetV2(in_ch=3),
+    "NASNetMobile": lambda plain, hw: NASNetMobile(in_ch=3, input_hw=hw),
 }
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -110,8 +121,13 @@ class SPNet(nn.Module):
         self.plain_kernels = plain_kernels
         self.stem = Stem()
         self.stem_dropout = Dropout(dropout_rate)
-        self.backbone = BACKBONES[backbone](plain_kernels)
-        fh, fw = self.backbone.output_hw(input_hw[0] // 2, input_hw[1] // 2)
+        if backbone not in BACKBONES:
+            raise ValueError(f"unknown backbone {backbone!r} (one of "
+                             f"{', '.join(BACKBONES)})")
+        # the stem's 2x2 average pool halves the input, rounding down
+        hw = (input_hw[0] // 2, input_hw[1] // 2)
+        self.backbone = BACKBONES[backbone](plain_kernels, hw)
+        fh, fw = self.backbone.output_hw(*hw)
         n_in = fh * fw * self.backbone.FEATURES
         if compound_head:
             n_preds = num_outputs // VARS_PER_PRED
@@ -160,7 +176,6 @@ def build_model(cfg: ModelConfig, num_outputs: int = 576, *,
     switches modes itself).  `device` has no default: the caller names the
     card or the CPU."""
     unported = {
-        "backbone": cfg.backbone not in BACKBONES,
         "stem_planar": cfg.stem_planar,
         "stem_fused": cfg.stem_fused,
         "remat": cfg.remat,
@@ -169,8 +184,7 @@ def build_model(cfg: ModelConfig, num_outputs: int = 576, *,
     if bad:
         raise NotImplementedError(
             f"not ported to spnet_tpu_torch yet: {bad} (the port has the "
-            f"{', '.join(BACKBONES)} backbones, the default, "
-            "selective-sigmoid and compound heads, and the NHWC stem)")
+            "NHWC stem without remat)")
     size = cfg.input_size
     hw = (size, size) if size else (ORIG_IMG_HEIGHT, ORIG_IMG_WIDTH)
     model = SPNet(

@@ -346,3 +346,37 @@ def test_flax_checkpoint_converts_and_serves(tmp_path):
         y = model(torch.from_numpy(x)).numpy()
     np.testing.assert_allclose(y, y_jax, rtol=0,
                                atol=1e-4 * np.abs(y_jax).max())
+
+
+def test_flax_checkpoint_of_another_backbone_converts_and_serves(tmp_path):
+    """The same script on an Orbax checkpoint of NASNetMobile at 96²: its
+    (k, k, 1, C) `sep*_dw` kernels and every other leaf land on the port's
+    state dict, and the CLI loader serves JAX's predictions (1e-4 of the
+    output's scale)."""
+    import importlib.util
+    import os
+
+    from spnet_tpu.cli.common import InferenceState
+    from spnet_tpu.io.checkpoint import save_checkpoint as j_save
+    from spnet_tpu_torch.cli.common import load_model_and_state
+    from test_torch_backbones import _cfg as backbone_cfg
+    from test_torch_backbones import setup as backbone_setup
+
+    jm, params, stats, x = backbone_setup("NASNetMobile")
+    j_save(str(tmp_path / "jax"), InferenceState(params, stats, 7),
+           JExperimentConfig(model=backbone_cfg("NASNetMobile",
+                                                JModelConfig)))
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location(
+        "flax_ckpt_to_torch", os.path.join(root, "scripts",
+                                           "flax_ckpt_to_torch.py"))
+    script = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(script)
+    script.main(["-w", str(tmp_path / "jax"), "-o", str(tmp_path / "pt")])
+    cfg, model, step = load_model_and_state(str(tmp_path / "pt"), "cpu")
+    assert cfg.model.backbone == "NASNetMobile" and step == 7
+    y_jax = np.asarray(jm.apply({"params": params, "batch_stats": stats}, x))
+    with torch.inference_mode():
+        y = model(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(y, y_jax, rtol=0,
+                               atol=1e-4 * np.abs(y_jax).max())

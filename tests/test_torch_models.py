@@ -157,14 +157,22 @@ def test_keras_init_uses_flax_fans():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("backbone", "InceptionResNetV2"), ("backbone", "NASNetMobile"),
-    ("backbone", "DarkNet19"), ("stem_planar", True),
-    ("stem_fused", True), ("remat", True),
+    ("stem_planar", True), ("stem_fused", True), ("remat", True),
 ])
 def test_build_model_refuses_unported_options(field, value):
     with pytest.raises(NotImplementedError, match=field):
         build_model(ModelConfig(input_size=96, **{field: value}),
                     device="cpu")
+
+
+def test_build_model_refuses_an_unknown_backbone():
+    """A backbone outside the six raises ValueError, as JAX's
+    `_backbone_ctor` does; so does SPNet itself."""
+    with pytest.raises(ValueError, match="unknown backbone 'ResNet50'"):
+        build_model(ModelConfig(input_size=96, backbone="ResNet50"),
+                    device="cpu")
+    with pytest.raises(ValueError, match="unknown backbone"):
+        SPNet(input_hw=(96, 96), backbone="VGG16")
 
 
 def test_build_model_names_its_device():

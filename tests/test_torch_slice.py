@@ -115,8 +115,11 @@ def test_evaluate_network_matches_jax_metrics(slice_setup, tmp_path):
         assert res[k] == getattr(st, k), k
     assert res["mean_pix_err"] == pytest.approx(st.mean_pix_err, abs=1e-3)
     assert (tmp_path / "hawley_spnet.csv").exists()
-    with pytest.raises(NotImplementedError):
-        evaluate_network(cfg, model, ds, "cpu", tta="h", verbose=0)
+    res_h = evaluate_network(cfg, model, ds, "cpu", tta="h",
+                             log_dir=str(tmp_path / "tta"), num_draw=0,
+                             verbose=0)
+    assert np.isfinite(res_h["mAP"]) and res_h["fps"] > 0
+    assert res_h["total_obj"] == res["total_obj"]
 
 
 def test_flax_checkpoint_converts_and_serves(slice_setup, tmp_path):

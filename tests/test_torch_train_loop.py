@@ -191,13 +191,42 @@ def test_cli_train_end_to_end(tmp_path):
     assert cfg.model.input_size == SIZE
     assert os.path.exists(os.path.join(os.path.dirname(logs[0]),
                                        "final_weights", "state.pt"))
-    for flag in (["--geo_augment"], ["--epoch_repeats", "2"],
-                 ["--predict_dir", "x"]):
+    for flag in (["--geo_augment"], ["--epoch_repeats", "2"]):
         p = subprocess.run(
             [sys.executable, "-m", "spnet_tpu_torch", "train", *flag,
              "--device", "cpu"], cwd=tmp_path, env=env,
             capture_output=True, text=True, timeout=120)
         assert p.returncode != 0 and "not ported" in p.stderr, flag
+
+
+def test_cli_train_predict_dir(tmp_path):
+    """`train --predict_dir <dir>` predicts over <dir> after training into
+    `<log_dir>/predict/` (the JAX CLI's chaining); a directory that is not
+    there is skipped with a message, and the run still ends well."""
+    _write_frames(str(tmp_path / "data" / "Train"), 8, 5)
+    _write_frames(str(tmp_path / "data" / "Val"), 8, 6)
+    env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="2")
+    for name, pdir in (("p", "data/Val"), ("q", "nowhere")):
+        proc = subprocess.run(
+            [sys.executable, "-m", "spnet_tpu_torch", "train", "-d", "data",
+             "-b", "8", "-e", "1", "-w", f"ck_{name}", "--name", name,
+             "--backbone", "MobileNetTiny", "--input_size", str(SIZE),
+             "--dtype", "float32", "--no-eval", "--predict_dir", pdir,
+             "--device", "cpu"],
+            cwd=tmp_path, env=env, capture_output=True, text=True,
+            timeout=300)
+        assert proc.returncode == 0, (proc.stdout[-3000:]
+                                      + proc.stderr[-3000:])
+        (log_dir,) = glob.glob(str(tmp_path / "logs" / f"{name}_*"))
+        csv = os.path.join(log_dir, "predict", "hawley_spnet.csv")
+        if pdir == "nowhere":
+            assert "(predict skipped: nowhere not found)" in proc.stdout
+            assert not os.path.exists(csv)
+        else:
+            assert "Starting prediction" in proc.stdout
+            assert len(open(csv).read().splitlines()) > 1
+        assert os.path.exists(os.path.join(log_dir, "final_weights",
+                                           "state.pt"))
 
 
 def test_dataset_too_large_for_the_card_raises(monkeypatch):
