@@ -103,6 +103,28 @@ check raises and the run exits non-zero:
                predictions), then `evaluate_network(..., tta="h,v,hv")` on
                the same frames (its own sweep batch, 64) with its launch
                count and metrics; the ensemble frames/s of both.
+  10. synth  - the synthetic feed and geometric training: one render batch
+               of 256 frames timed stage by stage, twice (scene sampling,
+               the noise-free render, the noise stage with its 256
+               generators, the resize, the uint8 copy, and PIL's PNG of 32
+               native frames); `synthetic_dataset` on the card
+               (512 train + 256 val frames at 331^2, frames/s); the
+               noise-free render (share of flipped pixels <= 1e-3) and the
+               resize (rel 2e-5) on the card against the CPU; the geo warp
+               of 32 frames against the CPU (image 2e-4, rows 1e-4) and the
+               encoder on the card against the host codec (slot lanes
+               bitwise, angle lanes 2e-6, bitwise or not printed);
+               `train_network` with geo_augment, epoch_repeats 2 and use_tb
+               (Xception-331 bf16, b=128, 2 epochs, then resumed to 3: K2 =
+               K3 = 16 a 2-epoch run, K1 34 per val batch, the 7 TensorBoard
+               scalars each epoch); 10 + 10 train steps with and without
+               geo in turns and 3 geo steps under `utils.profiling.trace`
+               (the geo stages' share of the device time from the trace);
+               then `gen-fake-espi -n 96 --all` and `train --geo_augment
+               --epoch_repeats 2 --use_tb --profile` (1 epoch, b=16)
+               through the CLI's `main`, with its
+               launch counts, its trace's kernel names (the repo's kernels
+               among them) and the geo stages' share.
 
 Every model path runs with all five launch counts (and the loss kernel's
 count of 'ss' launches) set to 0 just before it and checks them all just
@@ -112,7 +134,7 @@ after.  The line before the last is the kernels' JSON record (for K2-K4
 last line is
 `{"ok": true, "device": {...}}`.  Exits
 non-zero without a result when no CUDA device is available.  Needs torch
-and numpy, no jax and no PIL.
+and numpy, no jax; phase 10 writes and reads PNG files with PIL.
 """
 
 from __future__ import annotations
@@ -838,8 +860,9 @@ def _train_run(cfg, train_ds, val_ds, tmp, smi, tag="train"):
 
     log_dir, ckpt = os.path.join(tmp, "log"), os.path.join(tmp, "ckpt")
     tc = cfg.train
+    steps_per_epoch = (len(train_ds.x) // tc.batch_size) * tc.epoch_repeats
     start = (load_checkpoint(ckpt)[0]["step"] if os.path.exists(ckpt)
-             else 0) // (len(train_ds.x) // tc.batch_size)
+             else 0) // steps_per_epoch
     _zero_counts()
     t0 = time.perf_counter()
     state, hist = train_network(cfg, train_ds, val_ds, DEVICE,
@@ -848,7 +871,7 @@ def _train_run(cfg, train_ds, val_ds, tmp, smi, tag="train"):
     seconds = time.perf_counter() - t0
     counts = _counts()
     epochs = tc.epochs - start
-    steps = epochs * (len(train_ds.x) // tc.batch_size)
+    steps = epochs * steps_per_epoch
     val_batches = -(-len(val_ds.x) // max(tc.batch_size,
                                           min(VAL_BATCH, len(val_ds.x))))
     want = _want_counts(cfg.model, predict_batches=(val_batches + 1) * epochs,
@@ -1256,6 +1279,372 @@ def phase_tta(seed: int, smi: str) -> dict:
                 eval_launches=eval_counts["sepconv_infer"])
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: the synthetic feed and geometric training
+# ---------------------------------------------------------------------------
+SYNTH_TRAIN, SYNTH_VAL, GEO_REPEATS = 512, 256, 2
+GEO_STAGES = ("geo_augment", "grid_encode")
+# the noise-free render, card vs CPU: share of pixels a float32 threshold
+# test may flip (the tests' bound against JAX)
+RENDER_FLIP_SHARE = 1e-3
+RESIZE_RTOL = 2e-5       # float32 resize, card vs CPU (TF32 off)
+WARP_ATOL = 2e-4         # geo warp of [-1, 1] frames, card vs CPU
+ROWS_ATOL = 1e-4         # remapped rows (native pixels), card vs CPU
+ANGLE_LANE_ATOL = 2e-6   # the encoder's cos / sin lanes (float64 cos)
+GEN_FRAMES, PROFILE_BATCH = 96, 16
+RENDER_BATCH = 256  # synthetic_dataset's render batch
+
+
+def _sync_s(fn):
+    """(result, seconds) of fn() between two synchronizes."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def trace_summary(path: str) -> dict:
+    """From a torch.profiler chrome trace: the device time of all kernels,
+    of the kernels launched inside each GEO_STAGES range (a launch's
+    correlation id joins the host call to its kernel), and the kernel
+    names, in microseconds."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = {}
+    names = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            corr = e.get("args", {}).get("correlation")
+            kernels[corr] = kernels.get(corr, 0.0) + e.get("dur", 0.0)
+            names[e["name"]] = names.get(e["name"], 0) + 1
+    launches = [e for e in events  # runtime and low-level API calls
+                if e.get("cat", "").startswith("cuda_")
+                and "correlation" in e.get("args", {})]
+    stages = {k: 0.0 for k in GEO_STAGES}
+    for a in events:
+        if a.get("cat") != "user_annotation" or a.get("name") not in stages:
+            continue
+        t0, t1 = a["ts"], a["ts"] + a["dur"]
+        stages[a["name"]] += sum(
+            kernels.get(c["args"]["correlation"], 0.0) for c in launches
+            if c.get("tid") == a.get("tid") and t0 <= c["ts"] <= t1)
+    return dict(total_us=sum(kernels.values()), stages_us=stages,
+                names=names)
+
+
+def _ours(names: dict) -> dict:
+    """Launches of the repo's kernels among a trace's kernel names."""
+    ours = ("wgmma_kernel", "simple_kernel", "loss_kernel",
+            "grad_scale_kernel", "sel_sigmoid_fwd_kernel",
+            "sel_sigmoid_bwd_kernel")
+    found = {}
+    for name, n in names.items():
+        for k in ours:
+            if k in name:
+                found[k] = found.get(k, 0) + n
+    return found
+
+
+def _synth_breakdown(seed: int, smi: str) -> dict:
+    """One render batch of RENDER_BATCH frames, stage by stage: scene
+    sampling (host numpy), the noise-free render, the noise stage (a
+    generator a frame), the resize to 331^2, the truncating uint8 copy to
+    the host, and the PNG encoding of 32 of the native frames (what
+    gen-fake-espi writes); twice, the first a warm-up."""
+    import io
+
+    from PIL import Image
+
+    from spnet_tpu_torch.data import synth
+    from spnet_tpu_torch.ops.resize import resize
+
+    for rep in ("first", "second"):
+        scenes, t_scene = _sync_s(lambda: [synth.sample_scene(seed, f)
+                                           for f in range(RENDER_BATCH)])
+        arrays = synth.scenes_to_arrays(scenes)
+        clean, t_clean = _sync_s(lambda: synth.render_clean(arrays,
+                                                            device=DEVICE))
+        noisy, t_noise = _sync_s(lambda: synth.add_noise(
+            clean, arrays["noise_seed"]))
+        small, t_resize = _sync_s(lambda: resize(noisy, (331, 331)))
+        _, t_copy = _sync_s(lambda: torch.clamp(small, 0, 255).to(
+            torch.uint8).cpu().numpy())
+        _, t_gens = _sync_s(lambda: [
+            torch.Generator(device=DEVICE).manual_seed(int(s))
+            for s in arrays["noise_seed"]])
+        native = noisy[:32].to(torch.uint8).cpu().numpy()
+        _, t_png = _sync_s(lambda: [
+            Image.fromarray(f).save(io.BytesIO(), format="PNG")
+            for f in native])
+        res = dict(scene_s=t_scene, clean_s=t_clean, noise_s=t_noise,
+                   generators_s=t_gens, resize_s=t_resize, copy_s=t_copy,
+                   png32_s=t_png)
+        print(f"[synth] one batch of {RENDER_BATCH} frames ({rep} time), "
+              "seconds between synchronizes: "
+              + ", ".join(f"{k[:-2]} {v:.4f}" for k, v in res.items())
+              + f" (generators: creating and seeding {RENDER_BATCH} alone;"
+              f" png32: PIL's PNG of 32 native frames)  [{smi}]")
+    return res
+
+
+def _card_vs_cpu_synth(seed: int, train_ds) -> dict:
+    """The noise-free render and the resize, the geo warp and the encoder:
+    each on the card against the same call on the CPU (the encoder against
+    the host codec)."""
+    from spnet_tpu_torch.data import synth
+    from spnet_tpu_torch.grid import batch_ellipses_to_grid, \
+        canonicalize_records, normalize
+    from spnet_tpu_torch.ops import augment
+    from spnet_tpu_torch.ops.grid_encode import encode_batch_device
+    from spnet_tpu_torch.ops.resize import resize
+    from spnet_tpu_torch.train.steps import _prep_x
+
+    # frames 2, 5, 6, 7 of seed 0 with blur on select kernels 7, 7, 3, none
+    arrays = synth.scenes_to_arrays([synth.sample_scene(0, f, blur=True)
+                                     for f in (2, 5, 6, 7)])
+    card = synth.render_clean(arrays, device=DEVICE).cpu()
+    cpu = synth.render_clean(arrays, device="cpu")
+    flipped = ((card - cpu).abs() > 1e-3).float().mean().item()
+    x = torch.from_numpy(np.random.default_rng(seed).uniform(
+        0, 255, (4, 384, 512)).astype(np.float32))
+    r_card = resize(x.to(DEVICE), (331, 331)).cpu()
+    r_cpu = resize(x, (331, 331))
+    r_rel = ((r_card - r_cpu).abs().max() / r_cpu.abs().max()).item()
+    print(f"[synth] noise-free render, card vs CPU, 4 frames (blur 7, 7, 3, "
+          f"none): {flipped:.2e} of the pixels differ (tol "
+          f"{RENDER_FLIP_SHARE}); resize 384x512 -> 331^2 rel {r_rel:.2e} "
+          f"(tol {RESIZE_RTOL})")
+    if not (flipped <= RENDER_FLIP_SHARE and r_rel <= RESIZE_RTOL):
+        fail(f"synth: render card vs CPU {flipped}, resize rel {r_rel}")
+
+    n = min(32, len(train_ds.x))
+    xb = _prep_x(torch.from_numpy(train_ds.x[:n]))
+    rows = torch.from_numpy(train_ds.rows[:n])
+    mask = torch.from_numpy(train_ds.row_mask[:n])
+    params = augment.sample_geo_params(
+        torch.Generator().manual_seed(seed), n)
+    x_cpu, rows_cpu = augment.apply_geo_batch(xb, rows, mask, params)
+    x_card, rows_card = augment.apply_geo_batch(
+        xb.to(DEVICE), rows.to(DEVICE), mask.to(DEVICE),
+        {k: v.to(DEVICE) for k, v in params.items()})
+    w_err = (x_card.cpu() - x_cpu).abs().max().item()
+    r_err = (rows_card.cpu() - rows_cpu).abs().max().item()
+    y_card = encode_batch_device(rows_cpu.to(DEVICE), mask.to(DEVICE),
+                                 train_ds.grid).cpu().numpy()
+    m = mask.numpy()
+    recs = [canonicalize_records(rows_cpu.numpy()[i][m[i]]) for i in range(n)]
+    y_host = normalize(batch_ellipses_to_grid(recs, train_ds.grid,
+                                              on_overflow="drop"),
+                       train_ds.grid).astype(np.float32)
+    lanes = np.arange(y_host.shape[1]) % 8
+    angle = (lanes == 4) | (lanes == 5)
+    e_err = float(np.abs(y_card - y_host).max())
+    bitwise = bool(np.array_equal(y_card, y_host))
+    print(f"[synth] geo warp of {n} frames, card vs CPU: image "
+          f"max_abs_err {w_err:.3e} (tol {WARP_ATOL}), rows {r_err:.3e} "
+          f"(tol {ROWS_ATOL}); encoder on the card vs the host codec: "
+          f"bitwise {bitwise}, max_abs_err {e_err:.3e} (slot lanes exact, "
+          f"angle lanes tol {ANGLE_LANE_ATOL})")
+    if not (w_err <= WARP_ATOL and r_err <= ROWS_ATOL
+            and np.array_equal(y_card[:, ~angle], y_host[:, ~angle])
+            and e_err <= ANGLE_LANE_ATOL):
+        fail(f"synth: warp {w_err}, rows {r_err}, encoder {e_err}")
+    return dict(render_flipped=flipped, resize_rel=r_rel, warp_err=w_err,
+                encode_bitwise=bitwise)
+
+
+def _geo_step_profile(cfg, train_ds, tmp: str, smi: str) -> dict:
+    """Train steps of Xception-331 bf16 at b=128 on the resident synthetic
+    set: 10 geo steps and 10 without geo timed in turns to the host value
+    of the last loss, then 3 geo steps under `utils.profiling.trace`,
+    whose trace gives the geo stages' share of the device time."""
+    from spnet_tpu_torch.models.spnet import build_model
+    from spnet_tpu_torch.train.state import create_train_state
+    from spnet_tpu_torch.train.steps import make_train_step
+    from spnet_tpu_torch.utils.profiling import trace
+
+    model = build_model(cfg.model, device=DEVICE,
+                        generator=torch.Generator().manual_seed(0))
+    state = create_train_state(model, lambda step: 1e-5)
+    feed = [torch.from_numpy(a).to(DEVICE) for a in (
+        train_ds.x, train_ds.y, train_ds.rows, train_ds.row_mask)]
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    idx = torch.arange(TRAIN_BATCH, device=DEVICE)
+    steps = {geo: make_train_step(model, cfg.loss_weights, geo_augment=geo,
+                                  grid=cfg.grid) for geo in (False, True)}
+
+    def run(geo, n):
+        args = feed if geo else feed[:2]
+        for _ in range(n):
+            _, met = steps[geo](state, *args, idx, gen)
+        return float(met["loss"])
+
+    run(True, 2)
+    run(False, 2)
+    ms = {False: [], True: []}
+    for geo in (True, False, False, True):
+        _, sec = _sync_s(lambda: run(geo, 10))
+        ms[geo].append(1e3 * sec / 10)
+    logdir = os.path.join(tmp, "geo_profile")
+    with trace(logdir):
+        run(True, 3)
+    (path,) = [os.path.join(logdir, f) for f in os.listdir(logdir)]
+    summ = trace_summary(path)
+    share = {k: v / max(summ["total_us"], 1e-9)
+             for k, v in summ["stages_us"].items()}
+    mc = cfg.model
+    print(f"[synth] geo train step, {mc.backbone}-{mc.input_size} "
+          f"{mc.compute_dtype} b={TRAIN_BATCH}: "
+          f"{ms[True]} ms with geo, {ms[False]} ms without (10 steps each, "
+          f"in turns); 3 profiled steps: device time {summ['total_us']:.0f} "
+          f"us, geo_augment {summ['stages_us']['geo_augment']:.0f} us "
+          f"({100 * share['geo_augment']:.2f} %), grid_encode "
+          f"{summ['stages_us']['grid_encode']:.0f} us "
+          f"({100 * share['grid_encode']:.2f} %)  [{smi}]")
+    if summ["total_us"] <= 0:
+        fail("synth: the profiled geo steps show no device time")
+    del state, model, feed
+    torch.cuda.empty_cache()
+    return dict(geo_ms=ms[True], plain_ms=ms[False], share=share,
+                device_us=summ["total_us"], stages_us=summ["stages_us"])
+
+
+def _cli_gen_and_profile(tmp: str, smi: str) -> dict:
+    """`gen-fake-espi -n GEN_FRAMES --all`, then `train --geo_augment
+    --epoch_repeats GEO_REPEATS --use_tb --profile` for 1 epoch at
+    b=PROFILE_BATCH on those files, both through the CLI's `main` (in this
+    process, so the launch counts read), with every count set to 0 before
+    the train run and checked after."""
+    import glob
+
+    from spnet_tpu_torch.cli import gen_fake_espi, train
+    from spnet_tpu_torch.config import ModelConfig
+
+    cwd = os.getcwd()
+    os.chdir(tmp)
+    try:
+        _, t_gen = _sync_s(lambda: gen_fake_espi.main(
+            ["-d", "gen", "-n", str(GEN_FRAMES), "--all"]))
+        n_train = len(glob.glob("gen/Train/*.png"))
+        n_val = len(glob.glob("gen/Val/*.png"))
+        split = sum(i / GEN_FRAMES < 0.8 for i in range(GEN_FRAMES))
+        print(f"[synth] gen-fake-espi -n {GEN_FRAMES} --all: {n_train} "
+              f"Train + {n_val} Val pairs in {t_gen:.2f} s "
+              f"({GEN_FRAMES / t_gen:.1f} frames/s, PNG encoding "
+              f"included)  [{smi}]")
+        if (n_train, n_val) != (split, GEN_FRAMES - split):
+            fail(f"gen-fake-espi wrote {n_train} + {n_val} frames")
+        _zero_counts()
+        _, t_train = _sync_s(lambda: train.main(
+            ["-d", "gen", "-b", str(PROFILE_BATCH), "-e", "1", "-w", "ck",
+             "--name", "prof", "--geo_augment", "--epoch_repeats",
+             str(GEO_REPEATS), "--use_tb", "--profile", "--no-eval"]))
+        counts = _counts()
+        (log_dir,) = glob.glob("logs/prof_*")
+        traces = [os.path.abspath(t) for t in
+                  glob.glob(os.path.join(log_dir, "profile", "*.json"))]
+        steps = n_train // PROFILE_BATCH * GEO_REPEATS
+        v = n_val // PROFILE_BATCH * PROFILE_BATCH  # build_dataset's cut
+        val_batches = -(-v // max(PROFILE_BATCH, min(VAL_BATCH, v)))
+        want = _want_counts(ModelConfig(), predict_batches=val_batches + 1,
+                            train_steps=steps)
+        events = glob.glob(os.path.join(log_dir, "tb", "events.*"))
+        print(f"[synth] train --geo_augment --epoch_repeats {GEO_REPEATS} "
+              f"--use_tb --profile, 1 epoch at b={PROFILE_BATCH}: "
+              f"{t_train:.1f} s; launches {counts}; traces "
+              f"{[os.path.basename(t) for t in traces]}; tb {len(events)}")
+        if counts != want:
+            fail(f"synth: CLI train launches {counts} != {want}")
+        if len(events) != 1:
+            fail(f"synth: CLI train tb event files {events}")
+        if len(traces) != 1 or os.path.getsize(traces[0]) == 0:
+            fail(f"synth: profile traces {traces}")
+        summ = trace_summary(traces[0])
+    finally:
+        os.chdir(cwd)
+    ours = _ours(summ["names"])
+    share = {k: v / max(summ["total_us"], 1e-9)
+             for k, v in summ["stages_us"].items()}
+    print(f"[synth] the CLI's trace: {len(summ['names'])} kernel names, "
+          f"device time {summ['total_us']:.0f} us; the repo's kernels in "
+          f"it: {ours}; geo stages {summ['stages_us']} us "
+          f"({ {k: round(100 * v, 3) for k, v in share.items()} } %)")
+    if summ["total_us"] <= 0:
+        fail("synth: the CLI's trace holds no kernel")
+    return dict(gen_fps=GEN_FRAMES / t_gen, counts=counts, ours=ours,
+                share=share, trace_mb=os.path.getsize(traces[0]) / 2 ** 20)
+
+
+def phase_synth(seed: int, smi: str, phase6_img_s: float) -> dict:
+    """The synthetic feed on the card, the card against the CPU, geometric
+    training with epoch repeats and TensorBoard through `train_network`
+    (2 epochs, then resumed to 3), the geo steps' device share, and the
+    gen-fake-espi -> train --profile chain through the CLI."""
+    import dataclasses
+
+    from spnet_tpu_torch.config import ExperimentConfig, TrainConfig
+    from spnet_tpu_torch.data.dataset import synthetic_dataset
+    from spnet_tpu_torch.io.tb import read_events
+
+    cfg = ExperimentConfig(train=TrainConfig(
+        batch_size=TRAIN_BATCH, epochs=2, save_every=1, seed=seed,
+        geo_augment=True, epoch_repeats=GEO_REPEATS, use_tb=True))
+    out = dict(breakdown=_synth_breakdown(seed, smi))
+    (train_ds, t_train) = _sync_s(lambda: synthetic_dataset(
+        SYNTH_TRAIN, cfg.grid, seed=seed, input_size=cfg.model.input_size,
+        batch_size=TRAIN_BATCH, device=DEVICE))
+    (val_ds, t_val) = _sync_s(lambda: synthetic_dataset(
+        SYNTH_VAL, cfg.grid, seed=seed + 1, input_size=cfg.model.input_size,
+        device=DEVICE))
+    out["frames_per_s"] = (SYNTH_TRAIN / t_train, SYNTH_VAL / t_val)
+    print(f"[synth] synthetic_dataset on the card: {SYNTH_TRAIN} train "
+          f"frames in {t_train:.2f} s ({out['frames_per_s'][0]:.1f} "
+          f"frames/s, first call), {SYNTH_VAL} val frames in {t_val:.2f} s "
+          f"({out['frames_per_s'][1]:.1f} frames/s); uint8 at "
+          f"{cfg.model.input_size}^2, labels and rows from the host codec  "
+          f"[{smi}]")
+    size = cfg.model.input_size
+    if not (train_ds.x.shape == (SYNTH_TRAIN, size, size, 1)
+            and val_ds.x.shape == (SYNTH_VAL, size, size, 1)
+            and train_ds.x.dtype == np.uint8
+            and np.isfinite(train_ds.y).all()
+            and train_ds.row_mask.sum(1).min() >= 1
+            and 10 < train_ds.x.mean() < 200):
+        fail(f"synth: dataset {train_ds.x.shape} {train_ds.x.dtype}, mean "
+             f"{train_ds.x.mean()}, rows {train_ds.row_mask.sum()}")
+    out.update(_card_vs_cpu_synth(seed, train_ds))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        state, hist, counts = _train_run(cfg, train_ds, val_ds, tmp, smi,
+                                         "synth")
+        del state
+        (name,) = os.listdir(os.path.join(tmp, "log", "tb"))
+        events = list(read_events(os.path.join(tmp, "log", "tb", name)))
+        tags = {(s, t) for s, t, k, _ in events if k == "scalar"}
+        if len(tags) != 7 * cfg.train.epochs:
+            fail(f"synth: tb scalars {sorted(tags)}")
+        cfg3 = dataclasses.replace(cfg, train=dataclasses.replace(
+            cfg.train, epochs=3))
+        state, hist3, counts3 = _train_run(cfg3, train_ds, val_ds, tmp, smi,
+                                           "synth")
+        spe = (SYNTH_TRAIN // TRAIN_BATCH) * GEO_REPEATS
+        if state.step != 3 * spe or state.opt_state.count != 3 * spe:
+            fail(f"synth: resumed run ended at step {state.step}")
+        del state
+        torch.cuda.empty_cache()
+        out["img_per_sec"] = [h["img_per_sec"] for h in hist + hist3]
+        print(f"[synth] geo train images/s, b={TRAIN_BATCH}, repeats "
+              f"{GEO_REPEATS}, epochs 1-3 (3 resumed): "
+              f"{[round(v, 1) for v in out['img_per_sec']]}; phase 6 "
+              f"(no geo, seeded noise frames) epoch 2: {phase6_img_s:.1f}  "
+              f"[{smi}]")
+        out["train_counts"], out["resume_counts"] = counts, counts3
+        out["profile"] = _geo_step_profile(cfg, train_ds, tmp, smi)
+        out["cli"] = _cli_gen_and_profile(tmp, smi)
+    return out
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--seed", type=int, default=0)
@@ -1277,11 +1666,14 @@ def main(argv=None):
     heads = phase_heads(args.seed, smi)
     zoo = phase_zoo(args.seed, smi)
     tta = phase_tta(args.seed, smi)
+    syn = phase_synth(args.seed, smi, train["img_per_sec"])
     print(f"[done] {time.perf_counter() - t0:.1f} s after the device phase; "
           f"train {train['img_per_sec']:.1f} images/s at b={TRAIN_BATCH}; "
           f"zoo train images/s "
           f"{ {b: round(r['img_per_sec'], 1) for b, r in zoo.items()} }; "
-          f"TTA {tta['predict_fps']:.1f} frames/s  [{smi}]")
+          f"TTA {tta['predict_fps']:.1f} frames/s; synthetic feed "
+          f"{syn['frames_per_s'][1]:.1f} frames/s, geo train "
+          f"{syn['img_per_sec'][1]:.1f} images/s  [{smi}]")
     # K2-K4 at their timed shapes (TRAIN_BATCH x 576 float32): each input
     # read once, each output written once; their few operations an element
     # are far below the bytes' time.  ms: device time per call from a CUDA
@@ -1318,6 +1710,12 @@ def main(argv=None):
         # phase 9: predict_tta at b=16 and evaluate_network's TTA sweep
         "tta_launches": tta["launches"],
         "tta_eval_launches": tta["eval_launches"],
+        # phase 10: the geo training run's val sweeps, the CLI's profiled
+        # run, and the CLI trace's launches of the kernel
+        "synth_launches": syn["train_counts"]["sepconv_infer"],
+        "cli_launches": syn["cli"]["counts"]["sepconv_infer"],
+        "cli_trace_launches": syn["cli"]["ours"].get("wgmma_kernel", 0)
+        + syn["cli"]["ours"].get("simple_kernel", 0),
     },
         # the loss alone; the train step's forward also writes the
         # gradient (fused_ms, fused_bound_ms)
@@ -1334,7 +1732,9 @@ def main(argv=None):
               ss_step_ms=loss_ss["ss_step"]["ms"],
               ss_step_composed_ms=loss_ss["ss_step_composed"]["ms"],
               zoo_launches={b: r["train_counts"]["spnet_loss_fwd"]
-                            for b, r in zoo.items()}),
+                            for b, r in zoo.items()},
+              geo_launches=syn["train_counts"]["spnet_loss_fwd"],
+              cli_trace_launches=syn["cli"]["ours"].get("loss_kernel", 0)),
         # g * dloss/dy_pred from y_true, y_pred and g; the train step's
         # backward scales the kept gradient (scale_ms, scale_bound_ms)
         small("spnet_loss_bwd", loss_src, "spnet_tpu/ops/losses.py:176",
@@ -1342,7 +1742,10 @@ def main(argv=None):
               loss["bwd_plain"], 3 * n + 4, scale_ms=loss["scale"]["ms"],
               scale_bound_ms=1e3 * (2 * n + 4) / HBM_BYTES_PER_S,
               zoo_launches={b: r["train_counts"]["spnet_loss_bwd"]
-                            for b, r in zoo.items()}),
+                            for b, r in zoo.items()},
+              geo_launches=syn["train_counts"]["spnet_loss_bwd"],
+              cli_trace_launches=syn["cli"]["ours"].get(
+                  "grad_scale_kernel", 0)),
         small("selective_sigmoid_fwd", k4_src, k4_at,
               heads["ss"]["predict_counts"]["selective_sigmoid_fwd"],
               k4["fwd_err"], k4["fwd"], k4["fwd_plain"], 2 * n),

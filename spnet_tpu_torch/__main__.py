@@ -1,14 +1,17 @@
 """Unified CLI: `python -m spnet_tpu_torch <command> [args...]`.
 
-Commands ported so far (the training and serving paths):
+Commands ported so far (the training and serving paths, and the
+synthetic data generator):
 
   train            train, then evaluate            (train_spnet.py)
   evaluate         score on a labeled dataset      (evaluate_spnet.py)
   predict          label-free batch inference      (predict_spnet.py)
+  gen-fake-espi    synthetic ESPI frames + labels  (gen_fake_espi.py)
 
-All take a port checkpoint directory (`-w`, see `io/checkpoint.py`; a
-JAX checkpoint converts with `scripts/flax_ckpt_to_torch.py`; `train`
-resumes from it when present) and `--device` (default `cuda`).
+train, evaluate and predict take a port checkpoint directory (`-w`, see
+`io/checkpoint.py`; a JAX checkpoint converts with
+`scripts/flax_ckpt_to_torch.py`; `train` resumes from it when present).
+All take `--device` (default `cuda`).
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ _COMMANDS = {
     "train": "spnet_tpu_torch.cli.train",
     "evaluate": "spnet_tpu_torch.cli.evaluate",
     "predict": "spnet_tpu_torch.cli.predict",
+    "gen-fake-espi": "spnet_tpu_torch.cli.gen_fake_espi",
 }
 
 

@@ -79,6 +79,9 @@ def config_from_args(args, grid_tuple=(6, 6, 2)) -> ExperimentConfig:
             seed=getattr(args, "random_seed", 1),
             augment=not getattr(args, "noaugment", False),
             blur_prob=getattr(args, "blur_prob", 0.0),
+            geo_augment=getattr(args, "geo_augment", False),
+            epoch_repeats=getattr(args, "epoch_repeats", 1),
+            use_tb=getattr(args, "use_tb", False),
         ),
     )
 

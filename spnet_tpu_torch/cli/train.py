@@ -2,8 +2,10 @@
 
 Flags mirror `spnet_tpu/cli/train.py` (reference `train_spnet.py:96-112`),
 plus `--device` (default `cuda`).  Training runs on the device-resident
-feed on one device; `--geo_augment`, `--use_tb`, `--profile` and
-`--epoch_repeats` other than 1 are not ported yet and raise.  After
+feed on one device, with `--geo_augment`, `--epoch_repeats`, `--use_tb`
+(into `<log_dir>/tb`) and `--profile` (a `torch.profiler` trace of
+`train_network` into `<log_dir>/profile`) as in JAX; `--pretrained` is not
+ported yet and raises.  After
 training it evaluates on Test/ (Val/ when there is no Test/), predicts over
 `--predict_dir` into `<log_dir>/predict/` when that is given, and writes
 the final weights into the log directory.
@@ -30,18 +32,6 @@ from spnet_tpu_torch.data.dataset import build_dataset
 from spnet_tpu_torch.train.loop import train_network
 
 
-def _refuse_unported(args) -> None:
-    flags = [flag for flag, bad in (
-        ("--geo_augment", args.geo_augment),
-        ("--use_tb", args.use_tb),
-        ("--profile", args.profile),
-        ("--epoch_repeats", args.epoch_repeats != 1),
-    ) if bad]
-    if flags:
-        raise NotImplementedError(
-            f"not ported to spnet_tpu_torch yet: {', '.join(flags)}")
-
-
 def main(argv=None):
     p = argparse.ArgumentParser(
         description="trains network on training dataset",
@@ -61,13 +51,23 @@ def main(argv=None):
     p.add_argument("-l", "--lrmax", type=float, default=4e-5)
     p.add_argument("-n", "--noaugment", action="store_true")
     p.add_argument("--blur_prob", type=float, default=0.0,
-                   help="train-time Gaussian-blur probability")
+                   help="train-time Gaussian-blur probability (the "
+                        "reference's train-time blur is a silent no-op, "
+                        "so 0 matches its effective recipe)")
     p.add_argument("--geo_augment", action="store_true",
-                   help="geometric augmentation (not ported yet: raises)")
+                   help="train-time geometric augmentation (random "
+                        "flip/rotate/translate with on-device label "
+                        "re-encode) — replaces offline augment-preproc "
+                        "dataset inflation")
     p.add_argument("--epoch_repeats", type=int, default=1,
-                   help="passes per epoch (only 1 is ported)")
+                   help="shuffled passes over the training set per epoch "
+                        "program / per val sweep (>1 amortizes the "
+                        "per-epoch val sweep for tiny datasets trained "
+                        "many passes, e.g. with --geo_augment in place "
+                        "of offline 42x inflation)")
     p.add_argument("--use_tb", action="store_true",
-                   help="TensorBoard event files (not ported yet: raises)")
+                   help="emit TensorBoard event files (scalars + overlay "
+                        "image summaries) into <logdir>/tb")
     p.add_argument("--name", default="")
     p.add_argument("-r", "--random_seed", type=int, default=1)
     p.add_argument("--no-eval", action="store_true",
@@ -81,11 +81,11 @@ def main(argv=None):
                    help="tolerate >preds_per_cell ellipses in a grid "
                         "cell (drop extras) instead of failing")
     p.add_argument("--profile", action="store_true",
-                   help="device trace of the run (not ported yet: raises)")
+                   help="capture a torch.profiler host + device trace of "
+                        "the run into <logdir>/profile")
     add_model_args(p)
     add_device_arg(p)
     args = p.parse_args(argv)
-    _refuse_unported(args)
 
     print("Command line ~= \n", " ".join(sys.argv))
     print("args = ", args)
@@ -104,8 +104,15 @@ def main(argv=None):
         os.path.join(args.datapath, "Val"), cfg.grid,
         batch_size=args.batch_size, shuffle=False, input_size=size,
         on_overflow=ovf)
-    state, _ = train_network(cfg, train_ds, val_ds, device, log_dir=log_dir,
-                             ckpt_dir=args.weights)
+    if args.profile:
+        from spnet_tpu_torch.utils.profiling import trace
+
+        with trace(os.path.join(log_dir, "profile")):
+            state, _ = train_network(cfg, train_ds, val_ds, device,
+                                     log_dir=log_dir, ckpt_dir=args.weights)
+    else:
+        state, _ = train_network(cfg, train_ds, val_ds, device,
+                                 log_dir=log_dir, ckpt_dir=args.weights)
 
     if not args.no_eval:
         print("\n----------------------------\nStarting model evaluation...")

@@ -6,8 +6,9 @@ module state replaced by the explicit `GridSpec` and the multiprocessing
 shared-memory image loader replaced by (a) a PIL host loader with an
 optional .npy cache and (b) the native C++ loader in
 `spnet_tpu_torch/native` when built (see loader.py).  The port's copy of
-`spnet_tpu/data/dataset.py` without `synthetic_dataset` (which renders
-with the JAX package's generator).
+`spnet_tpu/data/dataset.py`; its `synthetic_dataset` renders with the
+port's generator (`data/synth.py`) and resizes (`ops/resize.py`) on a
+torch device.
 
 Data contract preserved: directories of paired `*.png` + `*.csv`; images
 resized to input_size x input_size, grayscale, Inception scaling
@@ -255,3 +256,72 @@ def batches(n: int, batch_size: int, shuffle: bool = True,
     for s in range(0, n - batch_size + 1, batch_size):
         yield idx[s : s + batch_size]
 
+
+def synthetic_dataset(
+    num_frames: int,
+    grid: GridSpec | None = None,
+    seed: int = 0,
+    input_size: int = 331,
+    batch_size: int | None = None,
+    uint8: bool = True,
+    blur: bool | None = None,
+    resize_method: str = "lanczos3",
+    device="cuda",
+) -> Dataset:
+    """In-memory synthetic dataset: generator -> arrays, no PNG round
+    trip (the twin of the JAX package's `synthetic_dataset`).  Frames
+    render and resize on `device` (a torch device) in batches of 256;
+    only the final resized frames come back to the host, by default as
+    uint8: clipped to [0, 255] and cast, which truncates (not
+    `quantize_u8`'s rounding), as the JAX package does.  Labels, raw rows
+    and their mask come from the host codec and are bitwise the JAX
+    package's; the pixels agree up to the noise (see `data/synth.py`)."""
+    import torch
+
+    from spnet_tpu_torch.data.synth import render_frames, sample_scene, \
+        scenes_to_arrays
+    from spnet_tpu_torch.grid import canonicalize_records
+    from spnet_tpu_torch.ops.resize import resize
+
+    device = torch.device(device)
+    grid = grid or GridSpec()
+    input_size = input_size or None  # 0 -> native resolution
+    if batch_size:
+        num_frames = nearest_multiple(num_frames, batch_size)
+
+    xs, ys, files, raws = [], [], [], []
+    gen_batch = 256
+    for b0 in range(0, num_frames, gen_batch):
+        nb = min(gen_batch, num_frames - b0)
+        scenes = [sample_scene(seed, b0 + i, blur=blur)
+                  for i in range(nb)]
+        imgs = render_frames(scenes_to_arrays(scenes), device=device)
+        if input_size:  # 0/None = the 'big' native-resolution convention
+            # lanczos3 matches the reference's PIL ANTIALIAS downsampling
+            # (`utils.py:337`); a triangle filter smears the thin (2-4 px)
+            # ring bands the ring-count regression depends on
+            imgs = resize(imgs, (input_size, input_size), resize_method,
+                          antialias=True)
+        xs.append(torch.clamp(imgs, 0, 255).to(torch.uint8)
+                  .cpu().numpy()[..., None])
+        raw_rows = [np.array(s.caption_rows()).reshape(-1, 6)
+                    for s in scenes]
+        raws.extend(raw_rows)
+        recs = [canonicalize_records(r) for r in raw_rows]
+        ys.append(normalize(batch_ellipses_to_grid(recs, grid), grid))
+        base = len(files)
+        files.extend(
+            f"synthetic://{seed}/{base + i}" for i in range(len(scenes))
+        )
+    x = np.concatenate(xs)
+    if not uint8:
+        x = ((x.astype(np.float32) / 255.0) - 0.5) * 2.0
+    rows, row_mask = pad_raw_rows(raws)
+    return Dataset(
+        x=x,
+        y=np.concatenate(ys).astype(np.float32),
+        file_list=files,
+        grid=grid,
+        rows=rows,
+        row_mask=row_mask,
+    )

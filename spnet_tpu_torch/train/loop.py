@@ -3,9 +3,12 @@
 Counterpart of `spnet_tpu/train/loop.py` for its device-resident feed on
 one device:
 
-  * the uint8 training set and the val frames live on the device; each
-    step gathers its minibatch there, with the epoch's order from the
-    numpy `data.dataset.batches` under the JAX package's seeds;
+  * the uint8 training set and the val frames live on the device (with
+    geometric augmentation, the padded raw ellipse rows and their mask
+    too); each step gathers its minibatch there, with the epoch's order
+    from the numpy `data.dataset.batches` under the JAX package's seeds:
+    an epoch is `epoch_repeats` shuffled passes, pass r of epoch e seeded
+    `seed + e * repeats + r`, then one val sweep;
   * augmentation and dropout draw from a `torch.Generator` on the device,
     seeded per epoch, so a resumed run draws what an unbroken one would;
   * the 1-cycle schedule keys off the train state's step, and the epoch
@@ -13,17 +16,18 @@ one device:
   * frozen phase -> unfreeze is an optimizer swap (`train/state.py`);
   * per epoch: a val sweep through the eval-mode model (the fused
     separable-conv kernel on the card), component losses, confusion and
-    ring metrics, `losses.dat`, `progress.png`, overlays, and a
+    ring metrics, `losses.dat`, `progress.png`, overlays, TensorBoard
+    scalars and the overlay image (`use_tb`, into `<log_dir>/tb`), and a
     checkpoint every `save_every` epochs and at the last one, with
     auto-resume from it.
 
-The chunked and host-fed feeds, geometric augmentation, `epoch_repeats`,
-TensorBoard, profiling and multi-device training are not ported yet and
-raise.
+The chunked and host-fed feeds, `pretrained` and multi-device training
+are not ported yet and raise.
 """
 
 from __future__ import annotations
 
+import os
 import time
 
 import numpy as np
@@ -37,6 +41,7 @@ from spnet_tpu_torch.config import IND_NOOBJ, VARS_PER_PRED, ExperimentConfig
 from spnet_tpu_torch.data.dataset import Dataset, batches
 from spnet_tpu_torch.grid import denormalize
 from spnet_tpu_torch.io.logs import LossLog, save_progress_plot
+from spnet_tpu_torch.io.tb import TBWriter
 from spnet_tpu_torch.io.render import show_pred_ellipses
 from spnet_tpu_torch.train.schedule import onecycle_schedule
 from spnet_tpu_torch.train.state import create_train_state, unfreeze
@@ -86,30 +91,64 @@ def predict_in_batches(predict_fn, x, batch_size: int,
 
 
 def _unported(cfg: ExperimentConfig) -> list[str]:
-    tc, mc = cfg.train, cfg.model
-    return [name for name, bad in (
-        ("geo_augment", tc.geo_augment),
-        ("epoch_repeats", tc.epoch_repeats != 1),
-        ("use_tb", tc.use_tb),
-        ("pretrained", bool(mc.pretrained)),
-    ) if bad]
+    return ["pretrained"] if cfg.model.pretrained else []
 
 
-def _to_device(ds: Dataset, val_ds: Dataset, device: torch.device):
-    """The resident arrays; raises when they do not fit the card."""
-    need = ds.x.nbytes + ds.y.nbytes + val_ds.x.nbytes
+def epoch_order(n: int, batch_size: int, seed: int, epoch: int,
+                repeats: int = 1) -> np.ndarray:
+    """(repeats * (n // batch_size), batch_size) int64 minibatch indices of
+    one epoch: `repeats` shuffled passes, pass r seeded with
+    seed + epoch * repeats + r (the seed the (epoch * repeats + r)'th
+    one-pass epoch would use)."""
+    return np.concatenate([
+        np.stack(list(batches(n, batch_size, shuffle=True,
+                              seed=seed + epoch * repeats + r)))
+        for r in range(repeats)])
+
+
+def _to_device(ds: Dataset, val_ds: Dataset, device: torch.device,
+               geo: bool = False):
+    """The resident arrays (x, y, val x, and with `geo` the raw rows and
+    their mask, else None); raises when they do not fit the card."""
+    rows_bytes = ds.rows.nbytes + ds.row_mask.nbytes if geo else 0
+    need = ds.x.nbytes + ds.y.nbytes + rows_bytes + val_ds.x.nbytes
     if device.type == "cuda":
         total = torch.cuda.get_device_properties(device).total_memory
         if need > RESIDENT_FRACTION * total:
             raise MemoryError(
                 f"the resident dataset takes {need / 1e9:.2f} GB (train "
-                f"{ds.x.nbytes / 1e9:.2f} GB frames + labels, val "
+                f"{ds.x.nbytes / 1e9:.2f} GB frames + labels"
+                + (" + raw rows" if geo else "") + ", val "
                 f"{val_ds.x.nbytes / 1e9:.2f} GB frames), more than "
                 f"{RESIDENT_FRACTION:.0%} of the card's "
                 f"{total / 1e9:.2f} GB; the chunked and host-fed feeds are "
                 "not ported to spnet_tpu_torch yet")
-    return (torch.as_tensor(ds.x).to(device), torch.as_tensor(ds.y).to(device),
-            torch.as_tensor(val_ds.x).to(device))
+
+    def put(a):
+        return torch.as_tensor(a).to(device)
+
+    return (put(ds.x), put(ds.y), put(val_ds.x),
+            put(ds.rows) if geo else None,
+            put(ds.row_mask) if geo else None)
+
+
+def _tb_epoch(tb: TBWriter, log_dir: str, epoch: int, scalars) -> None:
+    """One epoch's TensorBoard record: the scalars, then the val overlay
+    image (the first overlay, else the progress plot) when one was
+    drawn (reference `callbacks.py:239-248`)."""
+    for tag, v in scalars:
+        tb.add_scalar(tag, v, epoch)
+    try:  # the image needs PIL; a missing one skips it, as in JAX
+        from PIL import Image
+
+        src = os.path.join(log_dir, "steelpan_pred_00000.png")
+        if not os.path.exists(src):
+            src = os.path.join(log_dir, "progress.png")
+        if os.path.exists(src):
+            tb.add_image("val/overlay",
+                         np.asarray(Image.open(src).convert("RGB")), epoch)
+    except Exception as e:  # noqa: BLE001 (the JAX loop does the same)
+        print(f"    (tb image skipped: {e!r})")
 
 
 def train_network(cfg: ExperimentConfig, train_ds: Dataset,
@@ -122,10 +161,16 @@ def train_network(cfg: ExperimentConfig, train_ds: Dataset,
         raise NotImplementedError(f"not ported to spnet_tpu_torch yet: {bad}")
     tc, mc, grid = cfg.train, cfg.model, cfg.grid
     device = torch.device(device)
+    geo = tc.geo_augment
+    if geo and train_ds.rows is None:
+        raise ValueError("geo_augment requires the dataset to carry raw "
+                         "ellipse rows (Dataset.rows); build it with "
+                         "build_dataset or synthetic_dataset")
     model = build_model(mc, num_outputs=grid.num_outputs, device=device,
                         generator=torch.Generator().manual_seed(tc.seed))
     n_train = train_ds.x.shape[0]
-    steps_per_epoch = n_train // tc.batch_size
+    repeats = max(int(tc.epoch_repeats), 1)
+    steps_per_epoch = (n_train // tc.batch_size) * repeats
     if steps_per_epoch == 0:
         raise ValueError(f"{n_train} training frames: fewer than one batch "
                          f"of {tc.batch_size}")
@@ -137,16 +182,20 @@ def train_network(cfg: ExperimentConfig, train_ds: Dataset,
     if ckpt_dir:
         state = restore_if_exists(ckpt_dir, state)
 
-    x_all, y_all, x_val = _to_device(train_ds, val_ds, device)
+    x_all, y_all, x_val, rows_all, mask_all = _to_device(train_ds, val_ds,
+                                                         device, geo)
     if verbose:
         print(f"    device-resident dataset: "
               f"{(train_ds.x.nbytes + val_ds.x.nbytes) / 1e9:.2f} GB on "
               f"{device}")
     train_step = make_train_step(
         model, cfg.loss_weights, mc.loss_type, l2_reg=mc.l2_reg,
-        augment=tc.augment, blur_prob=tc.blur_prob)
+        augment=tc.augment, blur_prob=tc.blur_prob, geo_augment=geo,
+        grid=grid)
+    feed = (x_all, y_all, rows_all, mask_all) if geo else (x_all, y_all)
     predict_fn = make_predict_step(model)
     log = LossLog(log_dir)
+    tb = TBWriter(f"{log_dir}/tb") if tc.use_tb else None
     history = []
     frozen_left = tc.frozen_epochs if tc.freeze_fac > 0 else 0
 
@@ -165,14 +214,13 @@ def train_network(cfg: ExperimentConfig, train_ds: Dataset,
 
     for epoch in range(start_epoch, tc.epochs):
         t0 = time.perf_counter()
-        idx_mat = torch.from_numpy(np.stack(list(batches(
-            n_train, tc.batch_size, shuffle=True, seed=tc.seed + epoch)))
-        ).to(device)
+        idx_mat = torch.from_numpy(epoch_order(
+            n_train, tc.batch_size, tc.seed, epoch, repeats)).to(device)
         gen = torch.Generator(device=device).manual_seed(
             tc.seed * 1_000_003 + epoch)
         losses = []
         for idx in idx_mat:
-            state, metrics = train_step(state, x_all, y_all, idx, gen)
+            state, metrics = train_step(state, *feed, idx, gen)
             losses.append(metrics["loss"])
         ep_loss = float(torch.stack(losses).mean())  # the epoch's one sync
         train_time = time.perf_counter() - t0
@@ -233,6 +281,15 @@ def train_network(cfg: ExperimentConfig, train_ds: Dataset,
                                    log_dir=log_dir)
         except Exception as e:  # noqa: BLE001 (the JAX loop does the same)
             print(f"    (plot/render skipped: {e!r})")
+        if tb is not None:
+            _tb_epoch(tb, log_dir, epoch, (
+                ("loss/train", ep_loss),
+                ("loss/val", comps_np["total"]),
+                ("metrics/ring_acc", st.ring_acc),
+                ("metrics/class_acc", st.class_acc),
+                ("metrics/mean_pix_err", st.mean_pix_err),
+                ("perf/img_per_sec", img_per_sec),
+                ("lr", state.schedule(state.step))))
 
         if ckpt_dir and ((epoch + 1) % tc.save_every == 0
                          or epoch == tc.epochs - 1):
@@ -240,4 +297,6 @@ def train_network(cfg: ExperimentConfig, train_ds: Dataset,
             if verbose:
                 print(f"    checkpoint saved to {ckpt_dir}")
 
+    if tb is not None:  # each record was flushed as it was written
+        tb.close()
     return state, history

@@ -2,7 +2,9 @@
 
 Counterpart of `spnet_tpu/train/steps.py`.  A train step gathers its
 minibatch from the uint8 dataset resident on the device, normalizes it,
-augments it (cutout, salt & pepper, optional blur), runs the forward pass
+with `geo_augment` warps it by a random flip / rotation / translation and
+re-encodes its labels from the remapped ellipse rows, augments it
+(cutout, salt & pepper, optional blur), runs the forward pass
 in train mode (batch-stat BatchNorm, dropout), the loss (the fused kernels
 K2/K3, which on the 'ss' head also apply its selective sigmoid K4) plus the
 L2 penalty, the backward pass, and one Adam update under the 1-cycle
@@ -20,10 +22,12 @@ import torch
 from torch import nn
 
 from spnet_tpu_torch.models.layers import Kernel
-from spnet_tpu_torch.ops.augment import augment_on_the_fly
+from spnet_tpu_torch.ops import augment as aug_ops
+from spnet_tpu_torch.ops.grid_encode import encode_batch_device
 from spnet_tpu_torch.ops.losses import loss_components, spnet_loss, \
     spnet_loss_fused
-from spnet_tpu_torch.config import LossWeights
+from spnet_tpu_torch.config import GridSpec, LossWeights
+from spnet_tpu_torch.utils.profiling import annotate
 
 
 def _prep_x(x):
@@ -100,7 +104,8 @@ def make_train_step(model: nn.Module,
                     loss_weights: LossWeights = LossWeights(),
                     loss_type: str = "same", l2_reg: float = 1e-4,
                     augment: bool = True, blur_prob: float = 0.0,
-                    l2_scope: str = "reference", indexed: str = "epoch"):
+                    l2_scope: str = "reference", indexed: str = "epoch",
+                    geo_augment: bool = False, grid: GridSpec | None = None):
     """Returns train_step(state, x_all, y_all, idx, generator) ->
     (state, metrics).
 
@@ -111,7 +116,15 @@ def make_train_step(model: nn.Module,
     through the fused kernels (`spnet_loss_fused`).  The step updates
     `state` in place (parameters, BN statistics, optimizer state, step)
     and returns it; metrics hold 'loss' and 'data_loss' as device scalars
-    (no host sync) and 'lr', the schedule at the step it ran."""
+    (no host sync) and 'lr', the schedule at the step it ran.
+
+    With `geo_augment=True` (requires `grid`) the step takes the padded
+    raw rows (N, S, 6) and their mask (N, S) after `y_all`:
+    train_step(state, x_all, y_all, rows_all, mask_all, idx, generator).
+    In this order: normalize, `geo_augment_batch` on the normalized frames
+    and the native-coordinate rows (flip / rotate / translate, fill -1),
+    `y = encode_batch_device(rows, mask, grid)` (the stored y_all is not
+    read), then cutout / salt & pepper, the model and the loss."""
     if indexed != "epoch":
         raise NotImplementedError(
             f"indexed={indexed!r}: only the device-resident feed "
@@ -119,17 +132,29 @@ def make_train_step(model: nn.Module,
     if l2_scope not in L2_SCOPES:
         raise ValueError(f"l2 scope must be one of {L2_SCOPES}, got "
                          f"{l2_scope!r}")
+    if geo_augment and grid is None:
+        raise ValueError("geo_augment=True requires the GridSpec")
 
-    def train_step(state, x_all, y_all, idx, generator):
+    def train_step(state, x_all, y_all, idx, generator, rows_all=None,
+                   mask_all=None):
         m = state.model
         m.train()
         x = _prep_x(x_all[idx])
+        if geo_augment:
+            mask = mask_all[idx]
+            with annotate("geo_augment"):
+                x, rows = aug_ops.geo_augment_batch(
+                    x, rows_all[idx], mask, generator,
+                    img_w=grid.img_width, img_h=grid.img_height)
+            with annotate("grid_encode"):
+                y = encode_batch_device(rows, mask, grid)
+        else:
+            y = y_all[idx]
         if augment:
-            x = augment_on_the_fly(x, generator, blur_prob=blur_prob)
+            x = aug_ops.augment_on_the_fly(x, generator, blur_prob=blur_prob)
         params = list(m.parameters())
         loss, data_loss = forward_loss(
-            m, x, y_all[idx], generator, loss_weights, loss_type, l2_reg,
-            l2_scope)
+            m, x, y, generator, loss_weights, loss_type, l2_reg, l2_scope)
         grads = torch.autograd.grad(loss, params)
         lr = state.schedule(state.step)
         state.opt_state = state.optimizer.update(params, grads,
@@ -138,6 +163,13 @@ def make_train_step(model: nn.Module,
         return state, {"loss": loss.detach(), "data_loss": data_loss.detach(),
                        "lr": lr}
 
+    if geo_augment:
+        def train_step_geo(state, x_all, y_all, rows_all, mask_all, idx,
+                           generator):
+            return train_step(state, x_all, y_all, idx, generator,
+                              rows_all, mask_all)
+
+        return train_step_geo
     return train_step
 
 

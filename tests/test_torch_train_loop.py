@@ -148,9 +148,9 @@ def test_train_network_trains_checkpoints_and_resumes(tmp_path):
     assert load_checkpoint(ck)[0]["step"] == 6
     assert (spnet_loss_fwd.launches, spnet_loss_bwd.launches) == (f0, b0)
 
-    bad = dataclasses.replace(CFG, train=dataclasses.replace(
-        CFG.train, geo_augment=True))
-    with pytest.raises(NotImplementedError, match="geo_augment"):
+    bad = dataclasses.replace(CFG, model=dataclasses.replace(
+        CFG.model, pretrained="backbone.h5"))
+    with pytest.raises(NotImplementedError, match="pretrained"):
         train_network(bad, train, val, "cpu", verbose=0)
 
 
@@ -191,12 +191,12 @@ def test_cli_train_end_to_end(tmp_path):
     assert cfg.model.input_size == SIZE
     assert os.path.exists(os.path.join(os.path.dirname(logs[0]),
                                        "final_weights", "state.pt"))
-    for flag in (["--geo_augment"], ["--epoch_repeats", "2"]):
-        p = subprocess.run(
-            [sys.executable, "-m", "spnet_tpu_torch", "train", *flag,
-             "--device", "cpu"], cwd=tmp_path, env=env,
-            capture_output=True, text=True, timeout=120)
-        assert p.returncode != 0 and "not ported" in p.stderr, flag
+    p = subprocess.run(
+        [sys.executable, "-m", "spnet_tpu_torch", "train", "-d", "data",
+         "-b", "8", "--input_size", str(SIZE), "--pretrained", "bb.h5",
+         "--device", "cpu"], cwd=tmp_path, env=env,
+        capture_output=True, text=True, timeout=120)
+    assert p.returncode != 0 and "not ported" in p.stderr
 
 
 def test_cli_train_predict_dir(tmp_path):
@@ -242,3 +242,164 @@ def test_dataset_too_large_for_the_card_raises(monkeypatch):
     need = (train.x.nbytes + train.y.nbytes + val.x.nbytes) / 1e9
     with pytest.raises(MemoryError, match=f"{need:.2f} GB"):
         loop._to_device(train, val, torch.device("cuda"))
+
+
+GEO_CFG = ExperimentConfig(
+    model=ModelConfig(backbone="MobileNetTiny", input_size=32,
+                      compute_dtype="float32"),
+    train=TrainConfig(batch_size=4, epochs=2, save_every=1, seed=3,
+                      geo_augment=True, epoch_repeats=2))
+
+
+def _geo_dataset(n, seed, size=32, grid=CFG.grid):
+    ds = _dataset(n, seed, grid)
+    from spnet_tpu_torch.data.dataset import pad_raw_rows
+
+    rng = np.random.default_rng(seed + 100)
+    rows, mask = pad_raw_rows([_raw_rows(rng, grid) for _ in range(n)])
+    return dataclasses.replace(ds, x=ds.x[:, :size, :size], rows=rows,
+                               row_mask=mask)
+
+
+def _recording_step(record, side):
+    """A stand-in for make_train_step: records each call's minibatch
+    indices and trains nothing.  JAX's epoch program takes (..., idx_mat,
+    rng, step_offset) and returns the epoch's losses; the port's step
+    (..., idx, generator) and returns a metrics dict."""
+    def make(*args, **kwargs):
+        record.append(("geo", kwargs.get("geo_augment")))
+
+        def step(state, *feed):
+            if side == "jax":
+                import jax.numpy as jnp
+
+                record.append(np.asarray(feed[-3]))
+                return state, jnp.zeros(len(record[-1]))
+            record.append(np.asarray(feed[-2]))
+            state.step += 1
+            return state, {"loss": torch.zeros(())}
+        return step
+    return make
+
+
+def test_epoch_order_under_repeats_matches_jax(monkeypatch, tmp_path):
+    """`epoch_repeats=2`, 3 epochs of 12 frames at b=4: the minibatch
+    indices the port's loop hands its steps, epoch by epoch, are those the
+    JAX loop hands its epoch program (pass r of epoch e shuffled with seed
+    + e * repeats + r), and both build the geo step."""
+    import spnet_tpu.train.loop as jloop
+    from spnet_tpu.config import ExperimentConfig as JExperimentConfig
+    from spnet_tpu.data.dataset import Dataset as JDataset
+    from spnet_tpu_torch.train import loop
+
+    cfg = dataclasses.replace(GEO_CFG, train=dataclasses.replace(
+        GEO_CFG.train, epochs=3))
+    train, val = _geo_dataset(12, 0), _geo_dataset(4, 1)
+    jcfg = JExperimentConfig.from_json(cfg.to_json())
+    jtrain, jval = (JDataset(x=d.x, y=d.y, file_list=d.file_list,
+                             grid=jcfg.grid, rows=d.rows,
+                             row_mask=d.row_mask) for d in (train, val))
+    j_rec, t_rec = [], []
+    monkeypatch.setattr(jloop, "make_train_step",
+                        _recording_step(j_rec, "jax"))
+    monkeypatch.setattr(jloop, "predict_in_batches", lambda fn, p, s, x, bs,
+                        **k: (np.zeros((len(x), 576), np.float32), 1.0))
+    jloop.train_network(jcfg, jtrain, jval, log_dir=str(tmp_path / "j"),
+                        render_overlays=False, verbose=0)
+    monkeypatch.setattr(loop, "make_train_step",
+                        _recording_step(t_rec, "torch"))
+    loop.train_network(cfg, train, val, "cpu", log_dir=str(tmp_path / "t"),
+                       render_overlays=False, verbose=0)
+    assert j_rec[0] == t_rec[0] == ("geo", True)
+    want = np.concatenate(j_rec[1:])
+    got = np.stack(t_rec[1:])
+    assert got.shape == (3 * 2 * 3, 4)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got[:6], loop.epoch_order(12, 4, 3, 0, 2))
+
+
+def test_geo_resume_equals_an_unbroken_run(monkeypatch, tmp_path):
+    """Geometric augmentation with epoch_repeats=2, 2 epochs: a run cut
+    after epoch 1's checkpoint and resumed ends with the weights, the BN
+    statistics, the optimizer state and the epoch-2 loss of an unbroken
+    run, bitwise; 4 steps an epoch; a dataset without raw rows raises."""
+    from spnet_tpu_torch.train import loop
+
+    train, val = _geo_dataset(8, 5), _geo_dataset(4, 6)
+    whole, hist = train_network(GEO_CFG, train, val, "cpu",
+                                log_dir=str(tmp_path / "a"),
+                                ckpt_dir=str(tmp_path / "ca"), verbose=0)
+    assert whole.step == 8 and [h["epoch"] for h in hist] == [0, 1]
+
+    class Cut(Exception):
+        pass
+
+    def save_then_cut(*args, **kwargs):
+        save_train_state(*args, **kwargs)
+        raise Cut
+
+    monkeypatch.setattr(loop, "save_train_state", save_then_cut)
+    with pytest.raises(Cut):
+        train_network(GEO_CFG, train, val, "cpu",
+                      log_dir=str(tmp_path / "b"),
+                      ckpt_dir=str(tmp_path / "cb"), verbose=0)
+    monkeypatch.setattr(loop, "save_train_state", save_train_state)
+    assert load_checkpoint(str(tmp_path / "cb"))[0]["step"] == 4
+    resumed, hist_b = train_network(GEO_CFG, train, val, "cpu",
+                                    log_dir=str(tmp_path / "b"),
+                                    ckpt_dir=str(tmp_path / "cb"), verbose=0)
+    assert resumed.step == 8 and [h["epoch"] for h in hist_b] == [1]
+    assert hist_b[0]["train_loss"] == hist[1]["train_loss"]
+    for (k, a), b in zip(whole.model.state_dict().items(),
+                         resumed.model.state_dict().values()):
+        assert torch.equal(a, b), k
+    for a, b in zip(whole.opt_state.mu + whole.opt_state.nu,
+                    resumed.opt_state.mu + resumed.opt_state.nu):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="raw ellipse rows"):
+        train_network(GEO_CFG, dataclasses.replace(train, rows=None), val,
+                      "cpu", verbose=0)
+
+
+def test_cli_gen_fake_espi_then_train_geo_tb_profile(tmp_path):
+    """`gen-fake-espi -n 24 --all --device cpu` writes 20 Train and 4 Val
+    pairs; `train --geo_augment --epoch_repeats 2 --use_tb --profile` on
+    them (MobileNetTiny at 64^2, b=4, 1 epoch) trains 10 steps and writes
+    losses.dat, a TensorBoard event file under tb/ and a torch.profiler
+    trace under profile/, importing no jax."""
+    env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="2")
+    code = ("import sys, runpy\n"
+            "sys.argv = ['spnet_tpu_torch'] + sys.argv[1:]\n"
+            "runpy.run_module('spnet_tpu_torch', run_name='__main__')\n"
+            "bad = [m for m in ('jax', 'flax', 'optax') if m in sys.modules]\n"
+            "assert not bad, bad\n")
+    gen = subprocess.run(
+        [sys.executable, "-c", code, "gen-fake-espi", "-d", "data", "-n",
+         "24", "--all", "--device", "cpu"], cwd=tmp_path, env=env,
+        capture_output=True, text=True, timeout=300)
+    assert gen.returncode == 0, gen.stdout[-2000:] + gen.stderr[-2000:]
+    for sub, n in (("Train", 20), ("Val", 4)):
+        names = sorted(os.listdir(tmp_path / "data" / sub))
+        first = 0 if sub == "Train" else 20
+        assert len(names) == 2 * n and names[:2] == [
+            f"steelpan_{first:07d}.csv", f"steelpan_{first:07d}.png"]
+    proc = subprocess.run(
+        [sys.executable, "-c", code, "train", "-d", "data", "-b", "4",
+         "-e", "1", "-w", "ck", "--name", "g", "--backbone", "MobileNetTiny",
+         "--input_size", "64", "--dtype", "float32", "--geo_augment",
+         "--epoch_repeats", "2", "--use_tb", "--profile", "--no-eval",
+         "--device", "cpu"],
+        cwd=tmp_path, env=env, capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+    (log_dir,) = glob.glob(str(tmp_path / "logs" / "g_*"))
+    assert len(_rows(os.path.join(log_dir, "losses.dat"))) == 1
+    assert len(os.listdir(os.path.join(log_dir, "tb"))) == 1
+    traces = glob.glob(os.path.join(log_dir, "profile", "*.pt.trace.json"))
+    assert len(traces) == 1 and os.path.getsize(traces[0]) > 0
+    import json
+
+    names = {e.get("name") for e in json.load(open(traces[0]))["traceEvents"]}
+    assert {"geo_augment", "grid_encode"} <= names
+    payload, cfg = load_checkpoint(str(tmp_path / "ck"))
+    assert payload["step"] == 10 and cfg.train.geo_augment
+    assert cfg.train.epoch_repeats == 2 and cfg.train.use_tb
