@@ -125,13 +125,46 @@ check raises and the run exits non-zero:
                through the CLI's `main`, with its
                launch counts, its trace's kernel names (the repo's kernels
                among them) and the geo stages' share.
+  11. feeds  - `train_network` with device_data True (resident), False
+               (host-fed: each batch sliced on the host and copied one
+               ahead through pinned memory on a side stream) and "chunked"
+               (a chunk budget that `plan_chunks` turns into 4 chunks of
+               512): Xception-331 bf16, b=128, 2048 seeded frames + 256
+               val, augmentation on, 2 epochs a run, two runs of each in
+               turns (resident, host-fed, chunked, then reversed), with
+               their images/s and launch counts (K2 = K3 = steps, K1 34
+               per val batch);
+               every host-fed batch and every chunk on the card equal to
+               its host rows, and the chunked visit order equal to the
+               same streamer's on the CPU; 2 steps with augmentation off,
+               host-fed losses bitwise the resident ones (cuDNN
+               deterministic); 5 steps of each feed under torch.profiler,
+               in turns, and the device's idle share from the traces;
+  12. remat  - Xception-331 bf16 train steps at b=128 with the backbone
+               checkpointed and not, in turns: step time and the peak of
+               `max_memory_allocated`; one float32 b=16 step both ways:
+               loss and gradients (rel 1e-5) and BN running statistics
+               (rel 1e-6), bitwise or not printed;
+  13. export - Xception-331 bf16 port checkpoints (default and 'ss'
+               head) exported on the card (`io/export.py`, symbolic
+               batch) and loaded; 256 seeded frames at b=16 through
+               `predict_in_batches`, eager and artifact in turns, and a
+               b=7 batch: bitwise equal, K1 34 per batch and K4 1 per
+               batch through the artifact's operators; export and load
+               seconds, frames/s and host ms per batch of each;
+  14. pretrained - if keras and h5py import (Keras on its torch backend,
+               its optional jax import refused): a random-weight Keras
+               Xception's `.weights.h5` -> `train_network(pretrained=...)`,
+               2 steps at b=128, the backbone before the first step
+               bitwise the file's; else one line that says so.
 
 Every model path runs with all five launch counts (and the loss kernel's
 count of 'ss' launches) set to 0 just before it and checks them all just
 after.  The line before the last is the kernels' JSON record (for K2-K4
 `ms` is the graph-timed device time at 128 x 576, beside `call_ms`,
-`host_us` and `floor_ms`; K2 adds `ss_fused_ms` and `ss_launches`); the
-last line is
+`host_us` and `floor_ms`; K2 adds `ss_fused_ms` and `ss_launches`;
+`feeds_launches`, `remat_launches`, `pretrained_launches` and
+`export_launches` are the counts of phases 11-14); the last line is
 `{"ok": true, "device": {...}}`.  Exits
 non-zero without a result when no CUDA device is available.  Needs torch
 and numpy, no jax; phase 10 writes and reads PNG files with PIL.
@@ -428,7 +461,39 @@ def phase_kernel(seed: int, smi: str) -> dict:
           f"ms)  [{smi}]")
     res["bound_by"] = ("bytes" if 2 * res.pop("bytes_ms") >= res["bound_ms"]
                        else "operations")
+    _descriptor_ring(gen)
     return res
+
+
+#: launches of the descriptor-ring check: more than the launcher's ring of
+#: 256 cached TMA descriptors can hold, with one new one a launch
+RING_LAUNCHES = 300
+
+
+def _descriptor_ring(gen):
+    """K1's launcher caches TMA descriptors in a ring of 256 and looks up
+    three a launch (weight, x, taps).  RING_LAUNCHES bf16 launches with one
+    weight and a fresh x each (all kept alive: distinct addresses) walk the
+    ring past the weight's entry; every output must match the plain
+    version, the launch whose x descriptor takes the weight's slot too."""
+    from spnet_tpu_torch.ops.sepconv import sepconv_infer, \
+        sepconv_infer_torch
+
+    dw, pw, scale, bias = _sepconv_inputs(2, 8, 8, 64, 64, torch.bfloat16,
+                                          gen)[1:]
+    xs = [_sepconv_inputs(2, 8, 8, 64, 64, torch.bfloat16, gen)[0]
+          for _ in range(RING_LAUNCHES)]
+    worst = 0.0
+    for x in xs:
+        out = sepconv_infer(x, dw, pw, scale, bias)
+        ref = sepconv_infer_torch(x, dw, pw, scale, bias)
+        worst = max(worst, ((out.float() - ref.float()).abs().max()
+                            / ref.float().abs().max()).item())
+    torch.cuda.synchronize()
+    print(f"[kernel] descriptor ring: {RING_LAUNCHES} launches, one weight, "
+          f"a new x each: worst rel err {worst:.2e} (tol {BF16_RTOL})")
+    if not worst <= BF16_RTOL:
+        fail(f"sepconv after the descriptor ring wrapped: rel err {worst}")
 
 
 def _seeded_dataset(n: int, size: int, grid, seed: int):
@@ -852,9 +917,10 @@ def _seeded_split(sizes, size: int, grid, seed: int):
     return out
 
 
-def _train_run(cfg, train_ds, val_ds, tmp, smi, tag="train"):
-    """One `train_network` call with every launch count set to 0 before
-    and read after; checks what a run must show."""
+def _train_run(cfg, train_ds, val_ds, tmp, smi, tag="train", **feed):
+    """One `train_network` call (`feed`: its device_data, chunk_budget)
+    with every launch count set to 0 before and read after; checks what a
+    run must show."""
     from spnet_tpu_torch.io.checkpoint import load_checkpoint
     from spnet_tpu_torch.train.loop import train_network
 
@@ -867,7 +933,7 @@ def _train_run(cfg, train_ds, val_ds, tmp, smi, tag="train"):
     t0 = time.perf_counter()
     state, hist = train_network(cfg, train_ds, val_ds, DEVICE,
                                 log_dir=log_dir, ckpt_dir=ckpt,
-                                render_overlays=False)
+                                render_overlays=False, **feed)
     seconds = time.perf_counter() - t0
     counts = _counts()
     epochs = tc.epochs - start
@@ -1645,6 +1711,527 @@ def phase_synth(seed: int, smi: str, phase6_img_s: float) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phases 11-14: the chunked and host-fed feeds, remat, export, --pretrained
+# ---------------------------------------------------------------------------
+FEED_TRAIN, FEED_VAL, FEED_CHUNK = 2048, 256, 512
+FEEDS = {"resident": True, "host-fed": False, "chunked": "chunked"}
+PROFILED_STEPS = 5   # host-fed / resident steps under torch.profiler
+REMAT_STEPS = 5      # per timed run, 4 runs in turns (off, on, on, off)
+# float32 b=16 step, remat on vs off: the recompute runs the same kernels
+# on the same inputs (cuDNN deterministic during the check), so only an
+# order that varies between runs could part them
+REMAT_RTOL = 1e-5
+REMAT_STATS_RTOL = 1e-6
+EXPORT_FRAMES = 256  # per sweep, b=16, eager and artifact in turns
+
+
+def device_idle(path: str) -> dict:
+    """From a torch.profiler chrome trace: the span from the first device
+    event (kernel, copy, set) to the end of the last, the time covered by
+    at least one of them (the union of their intervals), the copies' own
+    time, and the idle share of the span, in microseconds."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    dev = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy",
+                                                 "gpu_memset")
+           and "dur" in e]
+    if not dev:
+        fail(f"no device event in the trace {path}")
+    iv = sorted((e["ts"], e["ts"] + e["dur"]) for e in dev)
+    busy, (lo, hi) = 0.0, iv[0]
+    for a, b in iv[1:]:
+        if a > hi:
+            busy, lo, hi = busy + hi - lo, a, b
+        else:
+            hi = max(hi, b)
+    busy += hi - lo
+    span = max(b for _, b in iv) - iv[0][0]
+    return dict(span_us=span, busy_us=busy, idle=1.0 - busy / span,
+                copy_us=sum(e["dur"] for e in dev
+                            if e["cat"] == "gpu_memcpy"))
+
+
+def _feed_batches(name, rows, train_ds, resident):
+    """The (x, y, idx) of the resident feed (`resident`: its device
+    tensors) or the host-fed (x, y) batches of `rows`, as `train_network`
+    makes them."""
+    from spnet_tpu_torch.train.chunked import Stager
+
+    if name == "resident":
+        return ((*resident, idx) for idx in torch.from_numpy(rows).to(DEVICE))
+    return Stager((train_ds.x, train_ds.y), TRAIN_BATCH,
+                  torch.device(DEVICE)).stream_rows(rows)
+
+
+def _feed_streams_vs_host(train_ds, seed: int) -> dict:
+    """The staging on the card against the host arrays: every host-fed
+    batch of an epoch equals its host rows; every chunk a chunked epoch
+    hands a (stand-in) step equals its host slice, and the (chunk,
+    within-chunk indices) sequence of 2 epochs equals that of the same
+    `run_chunked_epoch` on the CPU."""
+    from spnet_tpu_torch.train.chunked import ChunkStreamer, \
+        run_chunked_epoch
+    from spnet_tpu_torch.train.loop import epoch_order
+
+    order = epoch_order(FEED_TRAIN, TRAIN_BATCH, seed, 1)
+    for rows, (xb, yb) in zip(order, _feed_batches(
+            "host-fed", order, train_ds, None)):
+        if not (np.array_equal(xb.cpu().numpy(), train_ds.x[rows])
+                and np.array_equal(yb.cpu().numpy(), train_ds.y[rows])):
+            fail("feeds: a host-fed batch on the card differs from its "
+                 "host rows")
+    n_chunks = FEED_TRAIN // FEED_CHUNK
+    visits = {}
+    for dev in (DEVICE, "cpu"):
+        rec, seen = [], {}
+
+        def stub(state, x, y, idx, gen):
+            if id(x) not in seen:  # a new chunk: which host slice is it?
+                host = x.cpu().numpy()
+                hits = [c for c in range(n_chunks) if np.array_equal(
+                    host, train_ds.x[c * FEED_CHUNK:(c + 1) * FEED_CHUNK])]
+                if len(hits) != 1:
+                    fail(f"feeds: a chunk on {dev} matches host chunks "
+                         f"{hits}")
+                seen[id(x)] = (hits[0], x)  # keep x: ids stay unique
+            rec.append((seen[id(x)][0], idx.cpu().numpy()))
+            return state, {"loss": torch.zeros((), device=x.device)}
+
+        streamer = ChunkStreamer((train_ds.x, train_ds.y), FEED_CHUNK,
+                                 n_chunks, torch.device(dev))
+        for epoch in range(2):
+            run_chunked_epoch(stub, None, streamer, TRAIN_BATCH, None, epoch,
+                              seed)
+        visits[dev] = rec
+    same = len(visits[DEVICE]) == len(visits["cpu"]) == 2 * FEED_TRAIN \
+        // TRAIN_BATCH and all(
+            a[0] == b[0] and np.array_equal(a[1], b[1])
+            for a, b in zip(visits[DEVICE], visits["cpu"]))
+    chunks = [c for k, (c, _) in enumerate(visits[DEVICE])
+              if k % (FEED_CHUNK // TRAIN_BATCH) == 0]
+    print(f"[feeds] staging on the card: {len(order)} host-fed batches "
+          f"equal their host rows; chunked visits of 2 epochs (chunks "
+          f"{chunks}, {len(visits[DEVICE])} index rows) equal the CPU "
+          f"streamer's: {same}")
+    if not same:
+        fail("feeds: the chunked visit order on the card differs from the "
+             "CPU's")
+    return dict(chunks=chunks)
+
+
+def _feed_losses(cfg, train_ds, seed: int) -> dict:
+    """Two steps from one seed, augmentation off, with the resident feed
+    and with the host-fed one (the same minibatches): the losses equal,
+    bitwise (cuDNN deterministic during the check)."""
+    from spnet_tpu_torch.models.spnet import build_model
+    from spnet_tpu_torch.train.loop import epoch_order
+    from spnet_tpu_torch.train.state import create_train_state
+    from spnet_tpu_torch.train.steps import make_train_step
+
+    rows = epoch_order(FEED_TRAIN, TRAIN_BATCH, seed, 0)[:2]
+    resident = (torch.from_numpy(train_ds.x).to(DEVICE),
+                torch.from_numpy(train_ds.y).to(DEVICE))
+    losses, det = {}, torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for name in ("resident", "host-fed"):
+            model = build_model(cfg.model, device=DEVICE,
+                                generator=torch.Generator().manual_seed(seed))
+            state = create_train_state(model, lambda step: 1e-5)
+            step = make_train_step(model, cfg.loss_weights, augment=False,
+                                   indexed="epoch" if name == "resident"
+                                   else False)
+            gen = torch.Generator(device=DEVICE).manual_seed(seed)
+            losses[name] = [float(step(state, *b, gen)[1]["loss"]) for b in
+                            _feed_batches(name, rows, train_ds, resident)]
+            del state, model, step
+    finally:
+        torch.backends.cudnn.deterministic = det
+    print(f"[feeds] 2 steps, augmentation off, resident vs host-fed losses "
+          f"{losses['resident']} vs {losses['host-fed']}: bitwise "
+          f"{losses['resident'] == losses['host-fed']}")
+    if losses["resident"] != losses["host-fed"]:
+        fail(f"feeds: host-fed losses {losses['host-fed']} != resident "
+             f"{losses['resident']}")
+    torch.cuda.empty_cache()
+    return losses
+
+
+def _feed_profiles(cfg, train_ds, seed: int, tmp: str, smi: str) -> dict:
+    """PROFILED_STEPS train steps of the resident and the host-fed feed
+    under `utils.profiling.trace`, after 2 warm-up steps each, in turns
+    (resident, host-fed, host-fed, resident: the first trace of a process
+    pays the profiler's start-up): the device's idle share of each run
+    from its trace."""
+    from spnet_tpu_torch.models.spnet import build_model
+    from spnet_tpu_torch.train.loop import epoch_order
+    from spnet_tpu_torch.train.state import create_train_state
+    from spnet_tpu_torch.train.steps import make_train_step
+    from spnet_tpu_torch.utils.profiling import trace
+
+    model = build_model(cfg.model, device=DEVICE,
+                        generator=torch.Generator().manual_seed(seed))
+    state = create_train_state(model, lambda step: 1e-5)
+    resident = (torch.from_numpy(train_ds.x).to(DEVICE),
+                torch.from_numpy(train_ds.y).to(DEVICE))
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    rows = epoch_order(FEED_TRAIN, TRAIN_BATCH, seed, 0)
+    out = {"resident": [], "host-fed": []}
+    for k, name in enumerate(("resident", "host-fed", "host-fed",
+                              "resident")):
+        step = make_train_step(model, cfg.loss_weights,
+                               indexed="epoch" if name == "resident"
+                               else False)
+
+        def run(r):
+            for b in _feed_batches(name, r, train_ds, resident):
+                _, met = step(state, *b, gen)
+            return float(met["loss"])
+
+        run(rows[:2])
+        logdir = os.path.join(tmp, f"profile_{k}")
+        with trace(logdir):
+            run(rows[2:2 + PROFILED_STEPS])
+        (path,) = [os.path.join(logdir, f) for f in os.listdir(logdir)]
+        out[name].append(device_idle(path))
+    for name, runs in out.items():
+        print(f"[feeds] {name}, {PROFILED_STEPS} profiled steps, 2 runs: "
+              "device span " + ", ".join(
+                  f"{r['span_us'] / 1e3:.2f}" for r in runs) + " ms, busy "
+              + ", ".join(f"{r['busy_us'] / 1e3:.2f}" for r in runs)
+              + " ms, idle " + ", ".join(f"{100 * r['idle']:.2f}"
+                                         for r in runs)
+              + " %, copies " + ", ".join(f"{r['copy_us'] / 1e3:.3f}"
+                                          for r in runs) + f" ms  [{smi}]")
+    del state, model, resident
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_feeds(seed: int, smi: str) -> dict:
+    """The three feeds of `train_network` on Xception-331 bf16 at b=128:
+    FEED_TRAIN seeded frames, 2 epochs a run (augmentation on; the chunked
+    feed in 4 chunks of FEED_CHUNK), two runs of each in turns, their
+    images/s and launch counts; the
+    staging against the host; 2 steps resident vs host-fed; the host-fed
+    steps' idle share from a trace."""
+    from spnet_tpu_torch.config import ExperimentConfig, TrainConfig
+    from spnet_tpu_torch.train.chunked import plan_chunks
+
+    cfg = ExperimentConfig(train=TrainConfig(batch_size=TRAIN_BATCH,
+                                             epochs=2, seed=seed))
+    train_ds, val_ds = _seeded_split((FEED_TRAIN, FEED_VAL),
+                                     cfg.model.input_size, cfg.grid, seed)
+    item = train_ds.x[0].nbytes + train_ds.y[0].nbytes
+    budget = 3 * FEED_CHUNK * item + 3  # plan_chunks keeps ~3 in flight
+    plan = plan_chunks(FEED_TRAIN, item, TRAIN_BATCH, budget)
+    print(f"[feeds] {FEED_TRAIN} train frames ({train_ds.x.nbytes / 1e6:.1f}"
+          f" MB uint8) + {FEED_VAL} val at {cfg.model.input_size}^2; chunk "
+          f"budget {budget} B -> plan_chunks (chunk_len, n_chunks) {plan}")
+    if plan != (FEED_CHUNK, FEED_TRAIN // FEED_CHUNK):
+        fail(f"feeds: chunk plan {plan}")
+    out = {name: dict(img_per_sec=[]) for name in FEEDS}
+    with tempfile.TemporaryDirectory() as tmp:
+        # in turns, then in the reverse order: a later run of a process
+        # can be slower (or faster) than an earlier one
+        for name in list(FEEDS) + list(reversed(FEEDS)):
+            with tempfile.TemporaryDirectory(dir=tmp) as run_dir:
+                state, hist, counts = _train_run(
+                    cfg, train_ds, val_ds, run_dir, smi, f"feeds {name}",
+                    device_data=FEEDS[name], chunk_budget=budget)
+                del state
+            torch.cuda.empty_cache()
+            out[name]["img_per_sec"].append([h["img_per_sec"]
+                                             for h in hist])
+            out[name]["counts"] = counts
+        rates = "; ".join(
+            f"{n} {[[round(v, 1) for v in run] for run in r['img_per_sec']]}"
+            for n, r in out.items())
+        print(f"[feeds] train images/s at b={TRAIN_BATCH}, [epoch 1, epoch "
+              f"2] of each run, runs in turns and reversed: {rates}  "
+              f"[{smi}]")
+        out["streams"] = _feed_streams_vs_host(train_ds, seed)
+        out["losses"] = _feed_losses(cfg, train_ds, seed)
+        out["profile"] = _feed_profiles(cfg, train_ds, seed, tmp, smi)
+    return out
+
+
+def phase_remat(seed: int, smi: str) -> dict:
+    """Xception-331 bf16 train steps at b=128 with remat off and on, in
+    turns: step time and peak memory each; then one float32 b=16 step both
+    ways: the same loss, gradients and BN running statistics."""
+    import dataclasses
+
+    from spnet_tpu_torch.config import ExperimentConfig
+    from spnet_tpu_torch.models.layers import BatchNorm
+    from spnet_tpu_torch.models.spnet import build_model
+    from spnet_tpu_torch.train.state import create_train_state
+    from spnet_tpu_torch.train.steps import _prep_x, forward_loss, \
+        make_train_step
+
+    cfg = ExperimentConfig()
+    (ds,) = _seeded_split((TRAIN_BATCH,), cfg.model.input_size, cfg.grid,
+                          seed)
+    x, y = (torch.from_numpy(a).to(DEVICE) for a in (ds.x, ds.y))
+    model = build_model(cfg.model, device=DEVICE,
+                        generator=torch.Generator().manual_seed(seed))
+    state = create_train_state(model, lambda step: 1e-5)
+    step = make_train_step(model, cfg.loss_weights, indexed=False)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    gib = 2.0 ** 30
+
+    def run(remat, n):
+        model.remat = remat
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            _, met = step(state, x, y, gen)
+        float(met["loss"])
+        return (1e3 * (time.perf_counter() - t0) / n,
+                torch.cuda.max_memory_allocated() / gib)
+
+    run(False, 2)
+    run(True, 2)
+    _zero_counts()
+    res = {False: [], True: []}
+    for remat in (False, True, True, False):
+        res[remat].append(run(remat, REMAT_STEPS))
+    counts = _counts()
+    if counts != _want_counts(cfg.model, train_steps=4 * REMAT_STEPS):
+        fail(f"remat: launches {counts}")
+    for remat, r in res.items():
+        print(f"[remat] remat {remat}: step "
+              f"{[round(ms, 2) for ms, _ in r]} ms, peak "
+              f"{[round(g, 2) for _, g in r]} GiB (b={TRAIN_BATCH}, "
+              f"{REMAT_STEPS} steps a run, runs in turns off/on/on/off)  "
+              f"[{smi}]")
+    del state, model, step
+    torch.cuda.empty_cache()
+
+    f32 = dataclasses.replace(cfg.model, compute_dtype="float32")
+    got, det = [], torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for remat in (False, True):
+            m = build_model(dataclasses.replace(f32, remat=remat),
+                            device=DEVICE,
+                            generator=torch.Generator().manual_seed(seed))
+            m.train()
+            loss, _ = forward_loss(
+                m, _prep_x(x[:16]), y[:16],
+                torch.Generator(device=DEVICE).manual_seed(seed))
+            grads = torch.autograd.grad(loss, list(m.parameters()))
+            stats = [t for b in m.modules() if isinstance(b, BatchNorm)
+                     for t in (b.running_mean, b.running_var)]
+            got.append((float(loss.detach()), grads, stats))
+            del m
+    finally:
+        torch.backends.cudnn.deterministic = det
+    (l0, g0, s0), (l1, g1, s1) = got
+    top = max(g.abs().max().item() for g in g0)
+    l_rel = abs(l1 - l0) / abs(l0)
+    # each leaf against its own max, floored at 1e-6 of the largest (a few
+    # leaves are zero but for rounding, as in the CPU tests)
+    g_rel = max(((a - b).abs().max() / max(b.abs().max().item(),
+                                           1e-6 * top)).item()
+                for a, b in zip(g1, g0))
+    s_rel = max(((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+                .item() for a, b in zip(s1, s0))
+    bitwise = l0 == l1 and all(torch.equal(a, b) for a, b in zip(g0, g1)) \
+        and all(torch.equal(a, b) for a, b in zip(s0, s1))
+    print(f"[remat] float32 b=16 step, remat on vs off: loss rel "
+          f"{l_rel:.2e}, gradients rel {g_rel:.2e} (tol {REMAT_RTOL}), BN "
+          f"running statistics rel {s_rel:.2e} (tol {REMAT_STATS_RTOL}); "
+          f"bitwise {bitwise}")
+    if not (l_rel <= REMAT_RTOL and g_rel <= REMAT_RTOL
+            and s_rel <= REMAT_STATS_RTOL):
+        fail(f"remat: float32 step, loss rel {l_rel}, gradients {g_rel}, "
+             f"BN statistics {s_rel}")
+    torch.cuda.empty_cache()
+    return dict(step_ms={k: [ms for ms, _ in v] for k, v in res.items()},
+                peak_gib={k: [g for _, g in v] for k, v in res.items()},
+                counts=counts)
+
+
+def phase_export(seed: int, smi: str) -> dict:
+    """Xception-331 bf16 port checkpoints (default and 'ss' head) exported
+    on the card and loaded; EXPORT_FRAMES seeded frames at b=16 through
+    `predict_in_batches`, eager and artifact in turns, and a b=7 batch:
+    equal bitwise, with the launch counts; export time and frames/s."""
+    from spnet_tpu_torch.cli.common import load_model_and_state
+    from spnet_tpu_torch.config import ExperimentConfig, ModelConfig
+    from spnet_tpu_torch.io.checkpoint import save_checkpoint
+    from spnet_tpu_torch.io.export import export_predictor, load_predictor
+    from spnet_tpu_torch.models.layers import BatchNorm
+    from spnet_tpu_torch.models.spnet import build_model
+    from spnet_tpu_torch.train.loop import predict_in_batches
+    from spnet_tpu_torch.train.steps import make_predict_step
+
+    out = {}
+    for tag, mc in (("export", ModelConfig()),
+                    ("export ss", ModelConfig(selective_sigmoid=True))):
+        cfg = ExperimentConfig(model=mc)
+        gen = torch.Generator().manual_seed(seed)
+        model = build_model(mc, device="cpu", generator=gen)
+        with torch.no_grad():
+            for m in model.modules():
+                if isinstance(m, BatchNorm):
+                    m.running_mean.normal_(0.0, 0.1, generator=gen)
+                    m.running_var.uniform_(0.5, 1.5, generator=gen)
+        x, _ = _seeded_dataset(EXPORT_FRAMES, mc.input_size, cfg.grid, seed)
+        with tempfile.TemporaryDirectory() as tmp:
+            ck, art = os.path.join(tmp, "ck"), os.path.join(tmp, "art")
+            save_checkpoint(ck, model.state_dict(), cfg)
+            del model
+            _, t_export = _sync_s(lambda: export_predictor(ck, art,
+                                                           device=DEVICE))
+            (call, meta), t_load = _sync_s(lambda: load_predictor(art))
+            _, eager, _ = load_model_and_state(ck, DEVICE)
+            fns = {"eager": make_predict_step(eager), "artifact": call}
+            fps, ys, counts = {"eager": [], "artifact": []}, {}, {}
+            want = _want_counts(mc, predict_batches=EXPORT_FRAMES // 16 + 1)
+            for name in ("eager", "artifact", "artifact", "eager"):
+                _zero_counts()
+                ys[name], f = predict_in_batches(fns[name], x, 16, DEVICE,
+                                                 verbose=False)
+                counts[name] = _counts()
+                if counts[name] != want:
+                    fail(f"{tag}: {name} launches {counts[name]} != {want}")
+                fps[name].append(f)
+            x16 = torch.from_numpy(x[:16]).to(DEVICE)
+            host = {name: host_us(lambda: fns[name](x16), calls=50) / 1e3
+                    for name in ("eager", "artifact", "artifact", "eager")}
+            x7 = torch.from_numpy(x[:7]).to(DEVICE)
+            _zero_counts()
+            y7 = call(x7)
+            c7 = _counts()
+            e7 = fns["eager"](x7)
+        if c7 != _want_counts(mc, predict_batches=1):
+            fail(f"{tag}: b=7 launches {c7}")
+        err = max(np.abs(ys["artifact"] - ys["eager"]).max(),
+                  (y7 - e7).abs().max().item())
+        bitwise = np.array_equal(ys["artifact"], ys["eager"]) and \
+            torch.equal(y7, e7) and y7.shape == (7, cfg.grid.num_outputs)
+        print(f"[{tag}] {mc.backbone}-{mc.input_size} "
+              f"{mc.compute_dtype}, selective_sigmoid "
+              f"{mc.selective_sigmoid}: export {t_export:.2f} s, load "
+              f"{t_load:.2f} s, batch {meta['input']['batch']}; "
+              f"{EXPORT_FRAMES} frames at b=16 and 7 at b=7, artifact vs "
+              f"eager bitwise {bitwise} (max_abs_err {err:.3e}); launches "
+              f"per artifact sweep {counts['artifact']} (warm-up "
+              f"included), b=7 {c7}")
+        print(f"[{tag}] frames/s at b=16, in turns: eager "
+              f"{[round(v, 1) for v in fps['eager']]}, artifact "
+              f"{[round(v, 1) for v in fps['artifact']]}; ms per b=16 "
+              f"batch over 50 calls with one sync (host-bound when above "
+              f"the device time): eager {host['eager']:.3f}, artifact "
+              f"{host['artifact']:.3f}  [{smi}]")
+        if meta["input"]["batch"] != "symbolic" or not bitwise:
+            fail(f"{tag}: batch {meta['input']['batch']}, bitwise "
+                 f"{bitwise} (max_abs_err {err})")
+        # the launches counted in the artifact's last sweep
+        out[tag] = dict(export_s=t_export, fps=fps, counts=counts["artifact"],
+                        batch_ms=host)
+        del eager, fns, call
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_pretrained(seed: int, smi: str) -> dict:
+    """`train_network` with `pretrained` pointing at a random-weight Keras
+    Xception's `.weights.h5` (written here; Keras on its torch backend):
+    the backbone on the card before the first step equals the file's
+    weights, then 2 steps at b=128.  Without keras, one line says so."""
+    import dataclasses
+    import importlib.util
+
+    if any(importlib.util.find_spec(m) is None for m in ("keras", "h5py")):
+        print("[pretrained] keras or h5py is not installed on this host: "
+              "--pretrained is proven by the CPU tests "
+              "(tests/test_torch_keras_import.py) only")
+        return dict(keras=False)
+    # Keras on its torch backend; its optional jax import (an Orbax
+    # callback's, guarded by `except ImportError`) is refused, so that
+    # this process holds no JAX
+    os.environ.setdefault("KERAS_BACKEND", "torch")
+    sys.modules.setdefault("jax", None)
+    try:
+        import keras
+    except ImportError as e:
+        print(f"[pretrained] keras does not import here without JAX "
+              f"({e!r}): --pretrained is proven by the CPU tests "
+              "(tests/test_torch_keras_import.py) only")
+        return dict(keras=False)
+
+    from spnet_tpu_torch.config import ExperimentConfig, ModelConfig, \
+        TrainConfig
+    from spnet_tpu_torch.convert import flax_to_state_dict
+    from spnet_tpu_torch.io.keras_import import keras_xception_to_flax
+    from spnet_tpu_torch.train import loop
+
+    km = keras.applications.Xception(include_top=False, weights=None,
+                                     input_shape=(None, None, 3))
+    rng = np.random.default_rng(seed)
+    for layer in km.layers:  # non-trivial BN statistics
+        if layer.__class__.__name__ == "BatchNormalization":
+            layer.set_weights([rng.uniform(0.5, 1.5, w.shape).astype(
+                np.float32) for w in layer.get_weights()])
+    seen = {}
+    real = loop.make_train_step
+
+    def first_step_sees(model, *a, **k):
+        step = real(model, *a, **k)
+
+        def wrapped(state, *args):
+            if not seen:
+                seen.update({n: t.detach().cpu().clone() for n, t in
+                             state.model.backbone.state_dict().items()})
+            return step(state, *args)
+        return wrapped
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "xception.weights.h5")
+        km.save_weights(path)
+        cfg = ExperimentConfig(
+            model=ModelConfig(pretrained=path),
+            train=TrainConfig(batch_size=TRAIN_BATCH, epochs=1, seed=seed))
+        train_ds, val_ds = _seeded_split((2 * TRAIN_BATCH, TRAIN_BATCH),
+                                         cfg.model.input_size, cfg.grid,
+                                         seed)
+        loop.make_train_step = first_step_sees
+        try:
+            state, _, counts = _train_run(cfg, train_ds, val_ds, tmp, smi,
+                                          "pretrained")
+        finally:
+            loop.make_train_step = real
+        want = flax_to_state_dict(*keras_xception_to_flax(km),
+                                  state.model.backbone)
+        del state
+    same = set(seen) == set(want) and all(torch.equal(seen[k], want[k])
+                                          for k in want)
+    print(f"[pretrained] keras {keras.__version__} "
+          f"({keras.backend.backend()} backend): a random-weight Xception's "
+          f".weights.h5 -> train_network(pretrained=...), 2 steps at "
+          f"b={TRAIN_BATCH}; the backbone on the card before the first "
+          f"step equals the file's {len(want)} tensors bitwise: {same}; "
+          f"launches {counts}  [{smi}]")
+    if not same:
+        fail("pretrained: the backbone before the first step is not the "
+             "file's weights")
+    torch.cuda.empty_cache()
+    return dict(keras=True, counts=counts)
+
+
+def _late_launches(name: str, feeds: dict, remat: dict, pre: dict) -> dict:
+    """A loss kernel's launches on the paths of phases 11, 12 and 14."""
+    return dict(feeds_launches={f: feeds[f]["counts"][name] for f in FEEDS},
+                remat_launches=remat["counts"][name],
+                pretrained_launches=(pre["counts"][name] if pre["keras"]
+                                     else None))
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--seed", type=int, default=0)
@@ -1667,6 +2254,12 @@ def main(argv=None):
     zoo = phase_zoo(args.seed, smi)
     tta = phase_tta(args.seed, smi)
     syn = phase_synth(args.seed, smi, train["img_per_sec"])
+    t1 = time.perf_counter()
+    feeds = phase_feeds(args.seed, smi)
+    remat = phase_remat(args.seed, smi)
+    export = phase_export(args.seed, smi)
+    pre = phase_pretrained(args.seed, smi)
+    print(f"[done] phases 11-14 took {time.perf_counter() - t1:.1f} s")
     print(f"[done] {time.perf_counter() - t0:.1f} s after the device phase; "
           f"train {train['img_per_sec']:.1f} images/s at b={TRAIN_BATCH}; "
           f"zoo train images/s "
@@ -1716,6 +2309,14 @@ def main(argv=None):
         "cli_launches": syn["cli"]["counts"]["sepconv_infer"],
         "cli_trace_launches": syn["cli"]["ours"].get("wgmma_kernel", 0)
         + syn["cli"]["ours"].get("simple_kernel", 0),
+        # phases 11 and 13: each feed's 2-epoch run (its val sweeps), and
+        # one sweep of the exported artifact (EXPORT_FRAMES at b=16 and a
+        # warm-up batch; the 'ss' head's the same)
+        "feeds_launches": {f: feeds[f]["counts"]["sepconv_infer"]
+                           for f in FEEDS},
+        "export_launches": export["export"]["counts"]["sepconv_infer"],
+        "export_ss_launches": export["export ss"]["counts"][
+            "sepconv_infer"],
     },
         # the loss alone; the train step's forward also writes the
         # gradient (fused_ms, fused_bound_ms)
@@ -1734,7 +2335,8 @@ def main(argv=None):
               zoo_launches={b: r["train_counts"]["spnet_loss_fwd"]
                             for b, r in zoo.items()},
               geo_launches=syn["train_counts"]["spnet_loss_fwd"],
-              cli_trace_launches=syn["cli"]["ours"].get("loss_kernel", 0)),
+              cli_trace_launches=syn["cli"]["ours"].get("loss_kernel", 0),
+              **_late_launches("spnet_loss_fwd", feeds, remat, pre)),
         # g * dloss/dy_pred from y_true, y_pred and g; the train step's
         # backward scales the kept gradient (scale_ms, scale_bound_ms)
         small("spnet_loss_bwd", loss_src, "spnet_tpu/ops/losses.py:176",
@@ -1745,10 +2347,13 @@ def main(argv=None):
                             for b, r in zoo.items()},
               geo_launches=syn["train_counts"]["spnet_loss_bwd"],
               cli_trace_launches=syn["cli"]["ours"].get(
-                  "grad_scale_kernel", 0)),
+                  "grad_scale_kernel", 0),
+              **_late_launches("spnet_loss_bwd", feeds, remat, pre)),
         small("selective_sigmoid_fwd", k4_src, k4_at,
               heads["ss"]["predict_counts"]["selective_sigmoid_fwd"],
-              k4["fwd_err"], k4["fwd"], k4["fwd_plain"], 2 * n),
+              k4["fwd_err"], k4["fwd"], k4["fwd_plain"], 2 * n,
+              export_launches=export["export ss"]["counts"][
+                  "selective_sigmoid_fwd"]),
         # on the 'ss' train step K4 runs inside the loss kernel's pass:
         # its backward's launches are those of phase 7's fused=False step
         small("selective_sigmoid_bwd", k4_src, k4_at,

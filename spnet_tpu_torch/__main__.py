@@ -1,15 +1,16 @@
 """Unified CLI: `python -m spnet_tpu_torch <command> [args...]`.
 
-Commands ported so far (the training and serving paths, and the
-synthetic data generator):
+Commands ported so far (the training and serving paths, the synthetic
+data generator and the serving export):
 
   train            train, then evaluate            (train_spnet.py)
   evaluate         score on a labeled dataset      (evaluate_spnet.py)
   predict          label-free batch inference      (predict_spnet.py)
   gen-fake-espi    synthetic ESPI frames + labels  (gen_fake_espi.py)
+  export           checkpoint -> torch.export serving artifact (—)
 
-train, evaluate and predict take a port checkpoint directory (`-w`, see
-`io/checkpoint.py`; a JAX checkpoint converts with
+train, evaluate, predict and export take a port checkpoint directory
+(`-w`, see `io/checkpoint.py`; a JAX checkpoint converts with
 `scripts/flax_ckpt_to_torch.py`; `train` resumes from it when present).
 All take `--device` (default `cuda`).
 """
@@ -24,6 +25,7 @@ _COMMANDS = {
     "evaluate": "spnet_tpu_torch.cli.evaluate",
     "predict": "spnet_tpu_torch.cli.predict",
     "gen-fake-espi": "spnet_tpu_torch.cli.gen_fake_espi",
+    "export": "spnet_tpu_torch.cli.export",
 }
 
 

@@ -28,10 +28,9 @@ def parse_grid(s: str) -> tuple[int, int, int]:
 
 
 def add_model_args(p: argparse.ArgumentParser) -> None:
-    """The JAX CLI's model flags; `build_model` raises for `--remat`, not
-    ported yet.  The selective-sigmoid and compound heads have no flag
-    here either: a checkpoint's `experiment.json` or a `ModelConfig`
-    selects them."""
+    """The JAX CLI's model flags.  The selective-sigmoid and compound heads
+    have no flag here either: a checkpoint's `experiment.json` or a
+    `ModelConfig` selects them."""
     p.add_argument("--backbone", default="Xception",
                    choices=["Xception", "MobileNet", "MobileNetTiny",
                             "InceptionResNetV2", "NASNetMobile",
@@ -49,11 +48,15 @@ def add_model_args(p: argparse.ArgumentParser) -> None:
                    choices=["", "bfloat16", "float32"],
                    help="the backbone's compute dtype (empty = --dtype)")
     p.add_argument("--pretrained", default="",
-                   help="Keras pretrained backbone weights (not ported "
-                        "yet: any value raises)")
+                   help="Keras pretrained backbone weights (.h5 / .keras / "
+                        ".weights.h5; needs keras and h5py)")
     p.add_argument("--remat", action="store_true",
-                   help="rematerialize backbone activations (not ported "
-                        "yet: raises)")
+                   help="rematerialize backbone activations in the "
+                        "backward pass: one checkpoint region over the "
+                        "backbone, as JAX's nn.remat; one more backbone "
+                        "forward a step, and little peak saving (the "
+                        "recompute rebuilds every backbone activation at "
+                        "once)")
 
 
 def config_from_args(args, grid_tuple=(6, 6, 2)) -> ExperimentConfig:

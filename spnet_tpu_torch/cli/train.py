@@ -1,11 +1,12 @@
 """`python -m spnet_tpu_torch train` — train, then evaluate.
 
 Flags mirror `spnet_tpu/cli/train.py` (reference `train_spnet.py:96-112`),
-plus `--device` (default `cuda`).  Training runs on the device-resident
-feed on one device, with `--geo_augment`, `--epoch_repeats`, `--use_tb`
-(into `<log_dir>/tb`) and `--profile` (a `torch.profiler` trace of
-`train_network` into `<log_dir>/profile`) as in JAX; `--pretrained` is not
-ported yet and raises.  After
+plus `--device` (default `cuda`).  Training runs on one device, on the
+resident feed, or the chunked one when the set does not fit (JAX's
+choice), with `--geo_augment`, `--epoch_repeats`, `--use_tb` (into
+`<log_dir>/tb`), `--profile` (a `torch.profiler` trace of `train_network`
+into `<log_dir>/profile`), `--remat` and `--pretrained` (Keras backbone
+weights) as in JAX.  After
 training it evaluates on Test/ (Val/ when there is no Test/), predicts over
 `--predict_dir` into `<log_dir>/predict/` when that is given, and writes
 the final weights into the log directory.

@@ -926,11 +926,13 @@ EncodeTiled encoder() {
 }
 
 // A 2-D row-major (rows, cols) tensor of 2- or 4-byte elements as boxes of
-// (box_rows, box_cols), zero fill out of bounds; cached per (pointer, shape,
-// box, swizzle): a model's tensors come back to the same few addresses.
-const CUtensorMap* tensor_map(const void* ptr, bool f32, long long rows,
-                              int cols, int box_rows, int box_cols,
-                              bool swizzle) {
+// (box_rows, box_cols), zero fill out of bounds, into *out; false when it
+// cannot be encoded.  Cached per (pointer, shape, box, swizzle): a model's
+// tensors come back to the same few addresses.  The map is copied out, not
+// pointed at: a later lookup of the same launch may overwrite its entry
+// once the ring has wrapped.
+bool tensor_map(CUtensorMap* out, const void* ptr, bool f32, long long rows,
+                int cols, int box_rows, int box_cols, bool swizzle) {
   struct Entry {
     const void* ptr;
     long long rows;
@@ -945,11 +947,13 @@ const CUtensorMap* tensor_map(const void* ptr, bool f32, long long rows,
     const Entry& e = cache[i];
     if (e.ptr == ptr && e.rows == rows && e.cols == cols &&
         e.box_rows == box_rows && e.box_cols == box_cols && e.f32 == f32 &&
-        e.swizzle == swizzle)
-      return &e.map;
+        e.swizzle == swizzle) {
+      *out = e.map;
+      return true;
+    }
   }
   EncodeTiled encode = encoder();
-  if (!encode) return nullptr;
+  if (!encode) return false;
   Entry& e = cache[next];
   const int esize = f32 ? 4 : 2;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
@@ -966,7 +970,7 @@ const CUtensorMap* tensor_map(const void* ptr, bool f32, long long rows,
              swizzle ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
              CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
-    return nullptr;
+    return false;
   e.ptr = ptr;
   e.rows = rows;
   e.cols = cols;
@@ -976,7 +980,8 @@ const CUtensorMap* tensor_map(const void* ptr, bool f32, long long rows,
   e.swizzle = swizzle;
   next = (next + 1) % N;
   if (used < N) ++used;
-  return &e.map;
+  *out = e.map;
+  return true;
 }
 
 template <int NC, int TN>
@@ -988,11 +993,10 @@ int launch_wgmma(const void* x, const void* dw, const void* pw,
   const long long M = static_cast<long long>(B) * H * W;
   // the weight in (64 x 64) swizzled boxes; x in (box_rows x 64) rows of
   // the (M, C) view; the taps as (9 x 64) of the (9, C) view
-  const CUtensorMap* pw_map = tensor_map(pw, false, C, F, 64, 64, true);
-  const CUtensorMap* x_map =
-      tensor_map(x, false, M, C, Cfg::box_rows(W), KC, false);
-  const CUtensorMap* dw_map = tensor_map(dw, true, 9, C, 9, KC, false);
-  if (!pw_map || !x_map || !dw_map)
+  CUtensorMap pw_map, x_map, dw_map;
+  if (!tensor_map(&pw_map, pw, false, C, F, 64, 64, true) ||
+      !tensor_map(&x_map, x, false, M, C, Cfg::box_rows(W), KC, false) ||
+      !tensor_map(&dw_map, dw, true, 9, C, 9, KC, false))
     return static_cast<int>(cudaErrorInvalidValue);
   const int smem = Cfg::smem_bytes(W);
   static int configured = 0;  // the largest size allowed so far
@@ -1004,7 +1008,7 @@ int launch_wgmma(const void* x, const void* dw, const void* pw,
     configured = smem;
   }
   wgmma_kernel<NC, TN><<<blocks, Cfg::THREADS, smem, s>>>(
-      *pw_map, *x_map, *dw_map, static_cast<const float*>(scale),
+      pw_map, x_map, dw_map, static_cast<const float*>(scale),
       static_cast<const float*>(bias), static_cast<__nv_bfloat16*>(out), H, W,
       C, F, static_cast<int>(M), relu, relu_in);
   return 0;

@@ -94,12 +94,17 @@ class BatchNorm(nn.Module):
     variance (`F.batch_norm` would update with the unbiased one).
     `momentum` is flax's (0.99 by default, NASNet's 0.9997), torch's
     1 - momentum.  scale=False is flax `use_scale=False` (Inception-ResNet-
-    v2's gamma-less BN): no `weight` at all."""
+    v2's gamma-less BN): no `weight` at all.  With `update_stats` False a
+    train-mode pass normalizes with the batch statistics and leaves the
+    running ones alone: the recompute of a checkpointed backbone
+    (`models/spnet.py`, remat) runs so, and flax keeps only the first
+    pass's update."""
 
     def __init__(self, features: int, eps: float = BN_EPS,
                  momentum: float = BN_MOMENTUM, scale: bool = True):
         super().__init__()
         self.eps, self.momentum = eps, momentum
+        self.update_stats = True
         self.weight = nn.Parameter(torch.ones(features)) if scale else None
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
@@ -125,11 +130,13 @@ class BatchNorm(nn.Module):
             mean = xf.mean(dims)
             var = torch.clamp_min(torch.square(xf).mean(dims)
                                   - torch.square(mean), 0.0)
-            with torch.no_grad():
-                m = self.momentum
-                self.running_mean.copy_(m * self.running_mean
-                                        + (1 - m) * mean)
-                self.running_var.copy_(m * self.running_var + (1 - m) * var)
+            if self.update_stats:
+                with torch.no_grad():
+                    m = self.momentum
+                    self.running_mean.copy_(m * self.running_mean
+                                            + (1 - m) * mean)
+                    self.running_var.copy_(m * self.running_var
+                                           + (1 - m) * var)
         else:
             mean, var = self.running_mean, self.running_var
         # flax's order: (x - mean) * (rsqrt(var + eps) * scale) + bias

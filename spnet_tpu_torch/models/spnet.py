@@ -24,15 +24,27 @@ Counterpart of `spnet_tpu/models/spnet.py`:
 The flatten is NHWC, as in JAX, so a converted head kernel needs no
 permutation, and the compound interleave is JAX's, so neither does the
 split head.  With both heads set, the noobj lanes go through two sigmoids,
-as in JAX.  `build_model` raises ValueError for an unknown backbone, as
-JAX does, and NotImplementedError for what is not ported yet (remat, the
-planar and fused stems).
+as in JAX.
+
+`remat` (JAX's `nn.remat` over the backbone) runs the backbone under
+`torch.utils.checkpoint` in train mode: its activations are recomputed in
+the backward pass instead of kept.  It is one region over the whole
+backbone, as in JAX, so the backward rebuilds every backbone activation at
+once and the peak memory barely falls.  The recompute leaves the BatchNorm
+running statistics alone (flax keeps the first pass's update only), and
+the parameter names do not change, so checkpoints are interchangeable.
+`build_model` raises ValueError for an unknown backbone, as JAX does, and
+NotImplementedError for the planar and fused stems (TPU workarounds the
+port does not carry).
 """
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from spnet_tpu_torch.models.layers import (
     BatchNorm,
@@ -48,8 +60,9 @@ from spnet_tpu_torch.models.inception_resnet_v2 import InceptionResNetV2
 from spnet_tpu_torch.models.mobilenet import MobileNet
 from spnet_tpu_torch.models.nasnet import NASNetMobile
 from spnet_tpu_torch.models.xception import Xception
-from spnet_tpu_torch.ops.activations import SelectiveSigmoid, \
-    selective_sigmoid_torch
+# aliased: forward's `selective_sigmoid` argument would shadow it
+from spnet_tpu_torch.ops.activations import selective_sigmoid as \
+    selective_sigmoid_op, selective_sigmoid_torch
 from spnet_tpu_torch.config import (
     IND_NOOBJ, ORIG_IMG_HEIGHT, ORIG_IMG_WIDTH, VARS_PER_PRED, ModelConfig,
 )
@@ -95,6 +108,18 @@ class Stem(nn.Module):
         return x + avg_pool2_nhwc(inputs)
 
 
+@contextlib.contextmanager
+def _stats_frozen(bns):
+    """The BatchNorms in `bns` skip their running-statistic update."""
+    for m in bns:
+        m.update_stats = False
+    try:
+        yield
+    finally:
+        for m in bns:
+            m.update_stats = True
+
+
 class SPNet(nn.Module):
     """Stem + backbone + flat float32 grid head.
 
@@ -102,7 +127,8 @@ class SPNet(nn.Module):
     the stem's compute dtype, backbone_dtype the backbone's (None = dtype);
     params stay float32.  plain_kernels routes every separable conv and the
     selective sigmoid through their plain PyTorch versions (tests and the
-    chip check only)."""
+    chip check only).  remat recomputes the backbone's activations in the
+    backward pass of a train-mode step."""
 
     def __init__(self, num_outputs: int = 576,
                  input_hw: tuple[int, int] = (331, 331),
@@ -112,7 +138,8 @@ class SPNet(nn.Module):
                  backbone: str = "Xception",
                  selective_sigmoid: bool = False,
                  compound_head: bool = False,
-                 plain_kernels: bool = False):
+                 plain_kernels: bool = False,
+                 remat: bool = False):
         super().__init__()
         self.dtype = dtype
         self.backbone_dtype = backbone_dtype or dtype
@@ -127,6 +154,10 @@ class SPNet(nn.Module):
         # the stem's 2x2 average pool halves the input, rounding down
         hw = (input_hw[0] // 2, input_hw[1] // 2)
         self.backbone = BACKBONES[backbone](plain_kernels, hw)
+        self.remat = remat
+        # a tuple, not a ModuleList: no second name for these parameters
+        self._backbone_bns = tuple(m for m in self.backbone.modules()
+                                   if isinstance(m, BatchNorm))
         fh, fw = self.backbone.output_hw(*hw)
         n_in = fh * fw * self.backbone.FEATURES
         if compound_head:
@@ -145,7 +176,17 @@ class SPNet(nn.Module):
         it); it changes nothing for the other heads."""
         x = self.stem(x.to(self.dtype))
         x = self.stem_dropout(x, dropout_generator)
-        x = self.backbone(x.to(self.backbone_dtype))
+        x = x.to(self.backbone_dtype)
+        if self.remat and self.training and torch.is_grad_enabled():
+            # the backbone draws no random numbers (dropout is in the stem,
+            # outside), so no RNG state needs keeping for the recompute
+            x = checkpoint(self.backbone, x, use_reentrant=False,
+                           preserve_rng_state=False,
+                           context_fn=lambda: (contextlib.nullcontext(),
+                                               _stats_frozen(
+                                                   self._backbone_bns)))
+        else:
+            x = self.backbone(x)
         # NHWC flatten (models/spnet.py:349 in JAX), float32 head
         x = x.reshape(x.shape[0], -1).float()
         if self.compound_head:
@@ -158,8 +199,10 @@ class SPNet(nn.Module):
         else:
             x = self.final_output(x)
         if self.selective_sigmoid and selective_sigmoid:
-            x = (selective_sigmoid_torch(x) if self.plain_kernels
-                 else SelectiveSigmoid.apply(x))
+            if self.plain_kernels:
+                x = selective_sigmoid_torch(x)
+            else:
+                x = selective_sigmoid_op(x)
         return x
 
     def backbone_layer_order(self) -> list[str]:
@@ -178,13 +221,12 @@ def build_model(cfg: ModelConfig, num_outputs: int = 576, *,
     unported = {
         "stem_planar": cfg.stem_planar,
         "stem_fused": cfg.stem_fused,
-        "remat": cfg.remat,
     }
     bad = [k for k, v in unported.items() if v]
     if bad:
         raise NotImplementedError(
-            f"not ported to spnet_tpu_torch yet: {bad} (the port has the "
-            "NHWC stem without remat)")
+            f"not ported to spnet_tpu_torch: {bad} (TPU workarounds; the "
+            "port has the NHWC stem)")
     size = cfg.input_size
     hw = (size, size) if size else (ORIG_IMG_HEIGHT, ORIG_IMG_WIDTH)
     model = SPNet(
@@ -198,6 +240,7 @@ def build_model(cfg: ModelConfig, num_outputs: int = 576, *,
         selective_sigmoid=cfg.selective_sigmoid,
         compound_head=cfg.compound_head,
         plain_kernels=plain_kernels,
+        remat=cfg.remat,
     )
     if generator is None:
         generator = torch.Generator().manual_seed(0)

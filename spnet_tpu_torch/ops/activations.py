@@ -22,6 +22,11 @@ On the 'ss' training step the loss kernel applies the selective sigmoid
 in its own pass (`ops/losses.py::spnet_loss_fused`, selective_sigmoid=True)
 and the model leaves it out, so these kernels serve predict, evaluate and
 the paths that do not take the fused loss.
+
+The forward is also the operator `spnet_tpu_torch::selective_sigmoid_fwd`
+(the CUDA launch, the CPU twin and a fake), which `torch.export` records
+in a serving artifact; `selective_sigmoid_fwd` routes through it only
+while exporting.
 """
 
 from __future__ import annotations
@@ -91,8 +96,14 @@ def selective_sigmoid_fwd(x):
     """The selective sigmoid of x (B, M) float32: kernel K4 on a CUDA
     tensor, the twin on a CPU one."""
     _check(("x", x))
+    if torch.compiler.is_exporting():
+        return torch.ops.spnet_tpu_torch.selective_sigmoid_fwd(x)
     if x.device.type == "cpu":
         return selective_sigmoid_torch(x)
+    return _fwd_launch(x)
+
+
+def _fwd_launch(x):
     y = _launch("spnet_selective_sigmoid_fwd", torch.empty_like(x), x)
     selective_sigmoid_fwd.launches += 1
     return y
@@ -117,6 +128,25 @@ def _bwd(y, g):
 
 selective_sigmoid_fwd.launches = 0
 selective_sigmoid_bwd.launches = 0
+
+
+@torch.library.custom_op("spnet_tpu_torch::selective_sigmoid_fwd",
+                         mutates_args=(), device_types="cuda")
+def _fwd_op(x: torch.Tensor) -> torch.Tensor:
+    return _fwd_launch(x)
+
+
+_fwd_op.register_kernel("cpu")(selective_sigmoid_torch)
+_fwd_op.register_fake(lambda x: torch.empty_like(x))
+
+
+def selective_sigmoid(x):
+    """The model's selective sigmoid: `SelectiveSigmoid` (kernel forward
+    and backward), or, while `torch.export` traces, the registered
+    operator (eval only, no backward)."""
+    if torch.compiler.is_exporting():
+        return selective_sigmoid_fwd(x)
+    return SelectiveSigmoid.apply(x)
 
 
 class SelectiveSigmoid(torch.autograd.Function):

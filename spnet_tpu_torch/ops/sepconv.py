@@ -7,6 +7,13 @@ Hopper kernel (`csrc/sepconv.cu`), on a CPU tensor it runs the plain
 PyTorch version `sepconv_infer_torch`.  There is no fallback between the
 two: a CUDA launch either succeeds or raises.  `sepconv_plan` picks the
 kernel's tiles for a shape.
+
+The same two paths are registered as the operator
+`spnet_tpu_torch::sepconv_infer` (the CUDA launch and the CPU twin, with a
+fake that gives the output's shape), which `torch.export` records in a
+serving artifact (`io/export.py`); the wrapper routes through it only
+while exporting, so an eager call pays no dispatcher.  Importing this
+module registers the operator: an artifact loads where it is importable.
 """
 
 from __future__ import annotations
@@ -122,12 +129,21 @@ def _wgmma_tiles(lib, x, dw, pw, scale, bias) -> tuple[int, int, int]:
 def sepconv_infer(x, dw, pw, scale, bias, relu: bool = True,
                   relu_in: bool = False):
     """Fused separable conv; `sepconv_infer.launches` counts kernel
-    launches (CPU calls take the plain path and are not counted)."""
+    launches (CPU calls take the plain path and are not counted; launches
+    from an exported artifact count too)."""
     _check(x, dw, pw, scale, bias)
+    if torch.compiler.is_exporting():
+        return torch.ops.spnet_tpu_torch.sepconv_infer(x, dw, pw, scale,
+                                                       bias, relu, relu_in)
     if x.device.type == "cpu":
         return sepconv_infer_torch(x, dw, pw, scale, bias, relu, relu_in)
     if x.device.type != "cuda":
         raise ValueError(f"no sepconv kernel for device {x.device}")
+    return _launch(x, dw, pw, scale, bias, relu, relu_in)
+
+
+def _launch(x, dw, pw, scale, bias, relu, relu_in):
+    """The kernel on checked CUDA tensors."""
     from spnet_tpu_torch.ops._build import load_library
 
     lib = load_library()
@@ -153,3 +169,19 @@ def sepconv_infer(x, dw, pw, scale, bias, relu: bool = True,
 
 
 sepconv_infer.launches = 0
+
+
+@torch.library.custom_op("spnet_tpu_torch::sepconv_infer", mutates_args=(),
+                         device_types="cuda")
+def _sepconv_op(x: torch.Tensor, dw: torch.Tensor, pw: torch.Tensor,
+                scale: torch.Tensor, bias: torch.Tensor, relu: bool,
+                relu_in: bool) -> torch.Tensor:
+    return _launch(x, dw, pw, scale, bias, relu, relu_in)
+
+
+_sepconv_op.register_kernel("cpu")(sepconv_infer_torch)
+
+
+@_sepconv_op.register_fake
+def _(x, dw, pw, scale, bias, relu, relu_in):
+    return x.new_empty((*x.shape[:3], pw.shape[1]))

@@ -1,18 +1,30 @@
 """The training orchestrator and batched inference.
 
-Counterpart of `spnet_tpu/train/loop.py` for its device-resident feed on
-one device:
+Counterpart of `spnet_tpu/train/loop.py` on one device, with its three
+feeds (`device_data`):
 
-  * the uint8 training set and the val frames live on the device (with
-    geometric augmentation, the padded raw ellipse rows and their mask
-    too); each step gathers its minibatch there, with the epoch's order
-    from the numpy `data.dataset.batches` under the JAX package's seeds:
-    an epoch is `epoch_repeats` shuffled passes, pass r of epoch e seeded
-    `seed + e * repeats + r`, then one val sweep;
+  * resident (True; the default when train + val fit in RESIDENT_FRACTION
+    of the card): the uint8 training set and the val frames live on the
+    device (with geometric augmentation, the padded raw ellipse rows and
+    their mask too); each step gathers its minibatch there, with the
+    epoch's order from the numpy `data.dataset.batches` under the JAX
+    package's seeds: an epoch is `epoch_repeats` shuffled passes, pass r
+    of epoch e seeded `seed + e * repeats + r`, then one val sweep;
+  * chunked ("chunked"; the default when the set does not fit):
+    `train/chunked.py` streams equal chunks one ahead, pass r running
+    `run_chunked_epoch` with epoch `e * repeats + r`; the val frames stay
+    on the device;
+  * host-fed (False): each minibatch, in the resident feed's order, is
+    sliced on the host and copied one batch ahead through pinned memory
+    (`chunked.Stager`); the step takes the batch itself, and the val
+    sweep copies the host val frames batch by batch;
   * augmentation and dropout draw from a `torch.Generator` on the device,
     seeded per epoch, so a resumed run draws what an unbroken one would;
   * the 1-cycle schedule keys off the train state's step, and the epoch
     loss reaches the host once per epoch, not once per step;
+  * `pretrained` (Keras backbone weights, `io/keras_import.py`) is
+    applied after the train state is made and before the checkpoint
+    restore, so a checkpoint wins;
   * frozen phase -> unfreeze is an optimizer swap (`train/state.py`);
   * per epoch: a val sweep through the eval-mode model (the fused
     separable-conv kernel on the card), component losses, confusion and
@@ -21,13 +33,14 @@ one device:
     checkpoint every `save_every` epochs and at the last one, with
     auto-resume from it.
 
-The chunked and host-fed feeds, `pretrained` and multi-device training
-are not ported yet and raise.
+Multi-device training is not ported yet.  JAX's val-monitoring slice and
+`chunked_device_put` are TPU workarounds the port does not carry.
 """
 
 from __future__ import annotations
 
 import os
+import sys
 import time
 
 import numpy as np
@@ -43,13 +56,15 @@ from spnet_tpu_torch.grid import denormalize
 from spnet_tpu_torch.io.logs import LossLog, save_progress_plot
 from spnet_tpu_torch.io.tb import TBWriter
 from spnet_tpu_torch.io.render import show_pred_ellipses
+from spnet_tpu_torch.train.chunked import ChunkStreamer, Stager, \
+    plan_chunks, run_chunked_epoch
 from spnet_tpu_torch.train.schedule import onecycle_schedule
 from spnet_tpu_torch.train.state import create_train_state, unfreeze
 from spnet_tpu_torch.train.steps import make_predict_step, make_train_step
 
 #: Share of the card's memory the resident train + val frames and labels
-#: may take; the rest is left to parameters, optimizer state and the
-#: activations of a step.
+#: may take (and the chunked feed's chunks + val frames); the rest is left
+#: to parameters, optimizer state and the activations of a step.
 RESIDENT_FRACTION = 0.5
 
 
@@ -90,10 +105,6 @@ def predict_in_batches(predict_fn, x, batch_size: int,
     return y, fps
 
 
-def _unported(cfg: ExperimentConfig) -> list[str]:
-    return ["pretrained"] if cfg.model.pretrained else []
-
-
 def epoch_order(n: int, batch_size: int, seed: int, epoch: int,
                 repeats: int = 1) -> np.ndarray:
     """(repeats * (n // batch_size), batch_size) int64 minibatch indices of
@@ -106,23 +117,38 @@ def epoch_order(n: int, batch_size: int, seed: int, epoch: int,
         for r in range(repeats)])
 
 
+def _train_arrays(ds: Dataset, geo: bool) -> tuple:
+    """The per-frame arrays a train step reads: (x, y[, rows, mask])."""
+    return (ds.x, ds.y) + ((ds.rows, ds.row_mask) if geo else ())
+
+
+def _resident_bytes(ds: Dataset, val_ds: Dataset, geo: bool) -> int:
+    """Bytes of the resident feed's data: the train arrays and val x."""
+    return sum(a.nbytes for a in _train_arrays(ds, geo)) + val_ds.x.nbytes
+
+
+def _budget(device: torch.device) -> int:
+    """Bytes the feed's data may hold on `device` (no limit on the CPU)."""
+    if device.type != "cuda":
+        return sys.maxsize
+    return int(RESIDENT_FRACTION * torch.cuda.get_device_properties(
+        device).total_memory)
+
+
 def _to_device(ds: Dataset, val_ds: Dataset, device: torch.device,
                geo: bool = False):
     """The resident arrays (x, y, val x, and with `geo` the raw rows and
-    their mask, else None); raises when they do not fit the card."""
-    rows_bytes = ds.rows.nbytes + ds.row_mask.nbytes if geo else 0
-    need = ds.x.nbytes + ds.y.nbytes + rows_bytes + val_ds.x.nbytes
-    if device.type == "cuda":
-        total = torch.cuda.get_device_properties(device).total_memory
-        if need > RESIDENT_FRACTION * total:
-            raise MemoryError(
-                f"the resident dataset takes {need / 1e9:.2f} GB (train "
-                f"{ds.x.nbytes / 1e9:.2f} GB frames + labels"
-                + (" + raw rows" if geo else "") + ", val "
-                f"{val_ds.x.nbytes / 1e9:.2f} GB frames), more than "
-                f"{RESIDENT_FRACTION:.0%} of the card's "
-                f"{total / 1e9:.2f} GB; the chunked and host-fed feeds are "
-                "not ported to spnet_tpu_torch yet")
+    their mask, else None); raises when they do not fit the card (the
+    chunked and host-fed feeds take such a set)."""
+    need = _resident_bytes(ds, val_ds, geo)
+    if need > _budget(device):
+        raise MemoryError(
+            f"the resident dataset takes {need / 1e9:.2f} GB (train "
+            f"{ds.x.nbytes / 1e9:.2f} GB frames + labels"
+            + (" + raw rows" if geo else "") + ", val "
+            f"{val_ds.x.nbytes / 1e9:.2f} GB frames), more than "
+            f"{RESIDENT_FRACTION:.0%} of the card's memory; train with "
+            "device_data='chunked' or False")
 
     def put(a):
         return torch.as_tensor(a).to(device)
@@ -151,14 +177,32 @@ def _tb_epoch(tb: TBWriter, log_dir: str, epoch: int, scalars) -> None:
         print(f"    (tb image skipped: {e!r})")
 
 
+def _pick_feed(device_data, train_ds: Dataset, val_ds: Dataset,
+               device: torch.device, geo: bool):
+    """JAX's choice: None -> resident when train + val fit the budget, else
+    'chunked'; True, False and 'chunked' as given."""
+    if device_data not in (None, True, False, "chunked"):
+        raise ValueError(f"device_data must be None, True, False or "
+                         f"'chunked', got {device_data!r}")
+    if device_data is None:
+        fits = _resident_bytes(train_ds, val_ds, geo) <= _budget(device)
+        device_data = True if fits else "chunked"
+    return device_data
+
+
 def train_network(cfg: ExperimentConfig, train_ds: Dataset,
                   val_ds: Dataset, device: str | torch.device = "cuda",
                   log_dir: str = "./logs/run", ckpt_dir: str | None = None,
-                  render_overlays: bool = True, verbose: int = 1):
-    """Full training run on one device; returns (state, history)."""
-    bad = _unported(cfg)
-    if bad:
-        raise NotImplementedError(f"not ported to spnet_tpu_torch yet: {bad}")
+                  render_overlays: bool = True,
+                  device_data: bool | str | None = None,
+                  chunk_budget: int | None = None, verbose: int = 1):
+    """Full training run on one device; returns (state, history).
+
+    device_data: None picks the resident feed when the set fits, else the
+    chunked one; True (resident), "chunked", False (host-fed).
+    chunk_budget: the bytes the chunked feed's chunks may take on the
+    device (`plan_chunks` sizes ~3 in flight); None = RESIDENT_FRACTION of
+    the card less the val frames."""
     tc, mc, grid = cfg.train, cfg.model, cfg.grid
     device = torch.device(device)
     geo = tc.geo_augment
@@ -179,20 +223,55 @@ def train_network(cfg: ExperimentConfig, train_ds: Dataset,
                               tc.onecycle_final_div)
     state = create_train_state(model, sched, freeze_fac=tc.freeze_fac,
                                adam_variant=tc.adam_variant)
+    if mc.pretrained:
+        # Keras backbone weights (reference `models.py:349-355`); a
+        # checkpoint restore below still wins
+        from spnet_tpu_torch.io.keras_import import (
+            apply_backbone_weights, load_keras_backbone,
+        )
+
+        apply_backbone_weights(model, *load_keras_backbone(mc.pretrained,
+                                                           mc.backbone))
+        if verbose:
+            print(f"    pretrained backbone loaded from {mc.pretrained}")
     if ckpt_dir:
         state = restore_if_exists(ckpt_dir, state)
 
-    x_all, y_all, x_val, rows_all, mask_all = _to_device(train_ds, val_ds,
-                                                         device, geo)
-    if verbose:
-        print(f"    device-resident dataset: "
-              f"{(train_ds.x.nbytes + val_ds.x.nbytes) / 1e9:.2f} GB on "
-              f"{device}")
+    device_data = _pick_feed(device_data, train_ds, val_ds, device, geo)
+    arrays = _train_arrays(train_ds, geo)
+    if device_data == "chunked":
+        budget = (chunk_budget if chunk_budget is not None
+                  else _budget(device) - val_ds.x.nbytes)
+        item_bytes = sum(a.nbytes for a in arrays) // max(n_train, 1)
+        chunk_len, n_chunks = plan_chunks(n_train, item_bytes,
+                                          tc.batch_size, budget)
+        streamer = ChunkStreamer(arrays, chunk_len, n_chunks, device)
+        x_val = torch.as_tensor(val_ds.x).to(device)
+        if verbose:
+            print(f"    chunk-streamed dataset: "
+                  f"{train_ds.x.nbytes / 1e9:.2f} GB in {n_chunks} chunks "
+                  f"of {chunk_len} frames "
+                  f"({chunk_len * item_bytes / 1e9:.3f} GB each, "
+                  f"1-chunk-ahead prefetch)")
+    elif device_data:
+        x_all, y_all, x_val, rows_all, mask_all = _to_device(
+            train_ds, val_ds, device, geo)
+        feed = (x_all, y_all, rows_all, mask_all) if geo else (x_all, y_all)
+        if verbose:
+            print(f"    device-resident dataset: "
+                  f"{(train_ds.x.nbytes + val_ds.x.nbytes) / 1e9:.2f} GB on "
+                  f"{device}")
+    else:
+        stager = Stager(arrays, tc.batch_size, device)
+        x_val = val_ds.x
+        if verbose:
+            print("    host-fed batches (one batch ahead through pinned "
+                  "memory)")
     train_step = make_train_step(
         model, cfg.loss_weights, mc.loss_type, l2_reg=mc.l2_reg,
-        augment=tc.augment, blur_prob=tc.blur_prob, geo_augment=geo,
+        augment=tc.augment, blur_prob=tc.blur_prob,
+        indexed="epoch" if device_data else False, geo_augment=geo,
         grid=grid)
-    feed = (x_all, y_all, rows_all, mask_all) if geo else (x_all, y_all)
     predict_fn = make_predict_step(model)
     log = LossLog(log_dir)
     tb = TBWriter(f"{log_dir}/tb") if tc.use_tb else None
@@ -214,17 +293,32 @@ def train_network(cfg: ExperimentConfig, train_ds: Dataset,
 
     for epoch in range(start_epoch, tc.epochs):
         t0 = time.perf_counter()
-        idx_mat = torch.from_numpy(epoch_order(
-            n_train, tc.batch_size, tc.seed, epoch, repeats)).to(device)
         gen = torch.Generator(device=device).manual_seed(
             tc.seed * 1_000_003 + epoch)
-        losses = []
-        for idx in idx_mat:
-            state, metrics = train_step(state, *feed, idx, gen)
-            losses.append(metrics["loss"])
-        ep_loss = float(torch.stack(losses).mean())  # the epoch's one sync
+        if device_data == "chunked":
+            loss_sum, nb = 0.0, 0
+            for r in range(repeats):
+                state, r_loss, r_nb = run_chunked_epoch(
+                    train_step, state, streamer, tc.batch_size, gen,
+                    epoch * repeats + r, tc.seed)
+                loss_sum, nb = loss_sum + r_loss * r_nb, nb + r_nb
+            ep_loss = float(loss_sum / nb)  # the epoch's one sync
+        else:
+            order = epoch_order(n_train, tc.batch_size, tc.seed, epoch,
+                                repeats)
+            if device_data:
+                idx_mat = torch.from_numpy(order).to(device)
+                feed_iter = ((*feed, idx) for idx in idx_mat)
+            else:
+                feed_iter = stager.stream_rows(order)
+            losses = []
+            for batch in feed_iter:
+                state, metrics = train_step(state, *batch, gen)
+                losses.append(metrics["loss"])
+            nb = len(losses)
+            ep_loss = float(torch.stack(losses).mean())  # the one sync
         train_time = time.perf_counter() - t0
-        img_per_sec = len(losses) * tc.batch_size / max(train_time, 1e-9)
+        img_per_sec = nb * tc.batch_size / max(train_time, 1e-9)
 
         # ---- unfreeze transition (reference `train_spnet.py:74-78`) ----
         if tc.freeze_fac > 0 and frozen_left > 0:

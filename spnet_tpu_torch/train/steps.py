@@ -1,7 +1,8 @@
 """Train, eval and predict steps.
 
 Counterpart of `spnet_tpu/train/steps.py`.  A train step gathers its
-minibatch from the uint8 dataset resident on the device, normalizes it,
+minibatch from the uint8 dataset resident on the device (or, host-fed,
+takes the minibatch itself), normalizes it,
 with `geo_augment` warps it by a random flip / rotation / translation and
 re-encodes its labels from the remapped ellipse rows, augments it
 (cutout, salt & pepper, optional blur), runs the forward pass
@@ -104,15 +105,18 @@ def make_train_step(model: nn.Module,
                     loss_weights: LossWeights = LossWeights(),
                     loss_type: str = "same", l2_reg: float = 1e-4,
                     augment: bool = True, blur_prob: float = 0.0,
-                    l2_scope: str = "reference", indexed: str = "epoch",
+                    l2_scope: str = "reference",
+                    indexed: str | bool = "epoch",
                     geo_augment: bool = False, grid: GridSpec | None = None):
     """Returns train_step(state, x_all, y_all, idx, generator) ->
     (state, metrics).
 
     x_all (N, H, W, 1) uint8 and y_all (N, M) float32 are the whole
-    training set, resident on the device; idx (b,) int64 on the same
-    device picks the minibatch, gathered there.  `generator` (on that
-    device) draws the augmentation and the dropout mask.  The loss runs
+    training set (or a chunk of it) on the device; idx (b,) int64 on the
+    same device picks the minibatch, gathered there.  With indexed=False
+    (the host-fed feed) the step takes the minibatch itself:
+    train_step(state, x, y, generator), x (b, H, W, 1).  `generator` (on
+    that device) draws the augmentation and the dropout mask.  The loss runs
     through the fused kernels (`spnet_loss_fused`).  The step updates
     `state` in place (parameters, BN statistics, optimizer state, step)
     and returns it; metrics hold 'loss' and 'data_loss' as device scalars
@@ -124,32 +128,29 @@ def make_train_step(model: nn.Module,
     In this order: normalize, `geo_augment_batch` on the normalized frames
     and the native-coordinate rows (flip / rotate / translate, fill -1),
     `y = encode_batch_device(rows, mask, grid)` (the stored y_all is not
-    read), then cutout / salt & pepper, the model and the loss."""
-    if indexed != "epoch":
-        raise NotImplementedError(
-            f"indexed={indexed!r}: only the device-resident feed "
-            "(indexed='epoch') is ported to spnet_tpu_torch")
+    read), then cutout / salt & pepper, the model and the loss.  Host-fed
+    and geo: train_step(state, x, y, rows, mask, generator)."""
+    if indexed not in ("epoch", False):
+        raise ValueError(f"indexed must be 'epoch' or False, got "
+                         f"{indexed!r}")
     if l2_scope not in L2_SCOPES:
         raise ValueError(f"l2 scope must be one of {L2_SCOPES}, got "
                          f"{l2_scope!r}")
     if geo_augment and grid is None:
         raise ValueError("geo_augment=True requires the GridSpec")
 
-    def train_step(state, x_all, y_all, idx, generator, rows_all=None,
-                   mask_all=None):
+    def step(state, x, y, generator, rows=None, mask=None):
+        """One update from the minibatch (x, y[, rows, mask])."""
         m = state.model
         m.train()
-        x = _prep_x(x_all[idx])
+        x = _prep_x(x)
         if geo_augment:
-            mask = mask_all[idx]
             with annotate("geo_augment"):
                 x, rows = aug_ops.geo_augment_batch(
-                    x, rows_all[idx], mask, generator,
+                    x, rows, mask, generator,
                     img_w=grid.img_width, img_h=grid.img_height)
             with annotate("grid_encode"):
                 y = encode_batch_device(rows, mask, grid)
-        else:
-            y = y_all[idx]
         if augment:
             x = aug_ops.augment_on_the_fly(x, generator, blur_prob=blur_prob)
         params = list(m.parameters())
@@ -163,13 +164,26 @@ def make_train_step(model: nn.Module,
         return state, {"loss": loss.detach(), "data_loss": data_loss.detach(),
                        "lr": lr}
 
+    if indexed is False:
+        if geo_augment:
+            def train_step_geo(state, x, y, rows, mask, generator):
+                return step(state, x, y, generator, rows, mask)
+
+            return train_step_geo
+        return step
+
     if geo_augment:
         def train_step_geo(state, x_all, y_all, rows_all, mask_all, idx,
                            generator):
-            return train_step(state, x_all, y_all, idx, generator,
-                              rows_all, mask_all)
+            # the stored labels are not read: the step encodes its own
+            return step(state, x_all[idx], None, generator, rows_all[idx],
+                        mask_all[idx])
 
         return train_step_geo
+
+    def train_step(state, x_all, y_all, idx, generator):
+        return step(state, x_all[idx], y_all[idx], generator)
+
     return train_step
 
 

@@ -157,7 +157,7 @@ def test_keras_init_uses_flax_fans():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("stem_planar", True), ("stem_fused", True), ("remat", True),
+    ("stem_planar", True), ("stem_fused", True),
 ])
 def test_build_model_refuses_unported_options(field, value):
     with pytest.raises(NotImplementedError, match=field):

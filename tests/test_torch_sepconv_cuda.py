@@ -93,3 +93,23 @@ def test_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
         sepconv_infer(x, dw, pw, scale.cpu(), bias)
     with pytest.raises(TypeError):
         sepconv_infer(x.half(), dw, pw.half(), scale, bias)
+
+
+@pytest.mark.cuda
+def test_kernel_after_the_descriptor_ring_wraps(cuda):
+    """The launcher caches TMA descriptors in a ring of 256 and looks up
+    three a launch (weight, x, taps).  300 launches with one weight and a
+    fresh x each (kept alive: distinct addresses) walk the ring past the
+    weight's entry: the launch whose x descriptor takes that slot must
+    still read the weight through its own descriptor."""
+    dw, pw, scale, bias = _args((2, 8, 8, 64, 64), torch.bfloat16, cuda)[1:]
+    g = torch.Generator().manual_seed(1)
+    xs = [torch.randn(2, 8, 8, 64, generator=g).to(cuda, torch.bfloat16)
+          for _ in range(300)]
+    for x in xs:
+        out = sepconv_infer(x, dw, pw, scale, bias)
+        ref = sepconv_infer_torch(x, dw, pw, scale, bias)
+        rel = ((out.float() - ref.float()).abs().max()
+               / ref.float().abs().max()).item()
+        assert rel <= BF16_RTOL
+    torch.cuda.synchronize()

@@ -148,9 +148,11 @@ def test_train_network_trains_checkpoints_and_resumes(tmp_path):
     assert load_checkpoint(ck)[0]["step"] == 6
     assert (spnet_loss_fwd.launches, spnet_loss_bwd.launches) == (f0, b0)
 
+    # a pretrained backbone is read before the first step: a file that is
+    # not there raises and names it
     bad = dataclasses.replace(CFG, model=dataclasses.replace(
         CFG.model, pretrained="backbone.h5"))
-    with pytest.raises(NotImplementedError, match="pretrained"):
+    with pytest.raises(FileNotFoundError, match="backbone.h5"):
         train_network(bad, train, val, "cpu", verbose=0)
 
 
@@ -196,7 +198,7 @@ def test_cli_train_end_to_end(tmp_path):
          "-b", "8", "--input_size", str(SIZE), "--pretrained", "bb.h5",
          "--device", "cpu"], cwd=tmp_path, env=env,
         capture_output=True, text=True, timeout=120)
-    assert p.returncode != 0 and "not ported" in p.stderr
+    assert p.returncode != 0 and "'bb.h5' not found" in p.stderr
 
 
 def test_cli_train_predict_dir(tmp_path):
@@ -230,8 +232,9 @@ def test_cli_train_predict_dir(tmp_path):
 
 
 def test_dataset_too_large_for_the_card_raises(monkeypatch):
-    """The resident feed is the only one ported: a dataset over half the
-    card's memory raises and names its size, before any copy."""
+    """The resident feed, asked for on a dataset over half the card's
+    memory, raises and names its size, before any copy (left to itself,
+    `train_network` picks the chunked feed for such a set)."""
     from types import SimpleNamespace
 
     from spnet_tpu_torch.train import loop
