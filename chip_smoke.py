@@ -157,6 +157,33 @@ check raises and the run exits non-zero:
                Xception's `.weights.h5` -> `train_network(pretrained=...)`,
                2 steps at b=128, the backbone before the first step
                bitwise the file's; else one line that says so.
+  15. prep   - the data-preparation commands through their CLI `main`:
+               `gen-fake-espi` (16 native 512x384 frames on the card) -> an
+               aggregated Zooniverse CSV of their labels (swapped axes, a
+               duplicate) -> `parse-zooniverse` (rows as the labels) ->
+               `gen-bboxes` (a box a row) -> `setup-data -a 4` (Train/ and
+               Val/ counts); `augment -n 42` of 8 files on the card (336
+               variants: files/s and the warp's share of the command's
+               time), 2 of them on the CPU against it (names identical,
+               rows within 1e-4, pixels within 1 gray level); the
+               editor's data model (no display here);
+  16. dp     - data-parallel training, Xception-331 bf16 with f32 params:
+               (a) a 1-rank NCCL group through `train_network` (b=128, 512
+               + 256 frames, 2 epochs, resumed to 3; K2 = K3 = steps, K1 34
+               per val batch), 2 steps (augmentation and dropout off)
+               bitwise the same without a group, train images/s with
+               and without the group in turns, and the step with and
+               without it in turns, timed and traced (a step's device
+               time, its NCCL kernels and copies, the idle share, the
+               kernels the group adds); (b) two NCCL ranks on the
+               one card (refused: "Duplicate GPU", printed), then two gloo
+               ranks (`chip_smoke.py --dp-child`, the backend passed
+               explicitly) through `train_network` on their shards (b=128
+               global, 2 epochs of 4 steps): train losses and BatchNorm
+               running statistics equal on both, launches per rank, the
+               shared card's images/s (labelled, no claim), and one float32
+               b=16 step: loss and head-kernel gradient against one process
+               (rel 1e-5).
 
 Every model path runs with all five launch counts (and the loss kernel's
 count of 'ss' launches) set to 0 just before it and checks them all just
@@ -164,7 +191,8 @@ after.  The line before the last is the kernels' JSON record (for K2-K4
 `ms` is the graph-timed device time at 128 x 576, beside `call_ms`,
 `host_us` and `floor_ms`; K2 adds `ss_fused_ms` and `ss_launches`;
 `feeds_launches`, `remat_launches`, `pretrained_launches` and
-`export_launches` are the counts of phases 11-14); the last line is
+`export_launches` are the counts of phases 11-14, `dp_launches` of K1-K3
+those of phase 16); the last line is
 `{"ok": true, "device": {...}}`.  Exits
 non-zero without a result when no CUDA device is available.  Needs torch
 and numpy, no jax; phase 10 writes and reads PNG files with PIL.
@@ -175,6 +203,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -2224,6 +2253,617 @@ def phase_pretrained(seed: int, smi: str) -> dict:
     return dict(keras=True, counts=counts)
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the data-preparation commands
+# ---------------------------------------------------------------------------
+
+PREP_FRAMES = 16          # gen-fake-espi's native 512x384 frames
+PREP_AUGS = 4             # setup-data -a
+AUG_FILES, AUG_N = 8, 42  # augment: 8 files x 42 variants (its default)
+AUG_CPU_FILES = 2         # of them again on the CPU
+AUG_ROWS_ATOL = 1e-4      # augmented CSV rows (tests/test_torch_cli_data.py)
+AUG_PIXEL_LEVELS = 1      # card vs CPU: the truncating cast may part by 1
+
+
+def _zooniverse_csv(src: str, path: str) -> dict:
+    """An aggregated Zooniverse CSV (x, y, filename, fringe_count, rx, ry,
+    angle) from the frames' label files: a header, every ellipse (those
+    with a > b every other time as b, a, angle - 90, which
+    parse-zooniverse swaps back) and the last row again.  Returns the
+    rows parse-zooniverse must write, by file."""
+    from spnet_tpu_torch.data.csvio import paired_file_lists, read_raw_meta
+
+    lines, want = ["x,y,filename,fringe_count,rx,ry,angle"], {}
+    imgs, metas = paired_file_lists(src + os.sep)
+    for img, meta in zip(imgs, metas):
+        name = os.path.basename(img)
+        for i, row in enumerate(read_raw_meta(meta).tolist()):
+            cx, cy, a, b, ang, rings = row
+            if rings == 0:
+                continue  # "no object": parse-zooniverse drops it
+            want.setdefault(name, []).append(
+                (cx, cy, max(a, b), min(a, b), ang + 90.0 * (b > a), rings))
+            if i % 2 and a > b:
+                a, b, ang = b, a, ang - 90.0
+            lines.append(f"{cx!r},{cy!r},{name},{rings!r},{a!r},{b!r},"
+                         f"{ang!r}")
+    lines.append(lines[-1])  # an exact duplicate: dropped
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return want
+
+
+def _editor_model(csv_path: str, tmp: str) -> str:
+    """The editor's data model on one parsed label file (no display on
+    this host): load, hit-test, handles, save and reload."""
+    from spnet_tpu_torch.cli.ellipse_editor import Ellipse
+    from spnet_tpu_torch.data.csvio import read_raw_meta, write_meta_file
+
+    es = [Ellipse(*r) for r in read_raw_meta(csv_path).tolist()]
+    inside = all(e.contains(e.cx, e.cy) for e in es)
+    on_axes = all(abs(np.hypot(end[0] - e.cx, end[1] - e.cy) - e.a) < 1e-6
+                  and abs(np.hypot(side[0] - e.cx, side[1] - e.cy) - e.b)
+                  < 1e-6 for e in es for end, side in [e.handles()])
+    out = os.path.join(tmp, "editor.csv")
+    write_meta_file(out, [e.row() for e in es])
+    same = np.allclose(read_raw_meta(out), read_raw_meta(csv_path),
+                       rtol=0, atol=1e-6)
+    if not (es and inside and on_axes and same):
+        fail(f"ellipse-editor data model: {len(es)} ellipses, centers "
+             f"inside {inside}, handles on the axes {on_axes}, reload "
+             f"equal {same}")
+    return (f"{len(es)} ellipses of {os.path.basename(csv_path)}: centers "
+            f"inside, handles on the axes, saved and reloaded equal")
+
+
+def phase_prep(seed: int, smi: str) -> dict:
+    """gen-fake-espi -> an aggregated Zooniverse CSV -> parse-zooniverse ->
+    gen-bboxes -> setup-data -a PREP_AUGS, each through its CLI `main`;
+    then augment -n AUG_N of AUG_FILES files on the card (files/s, the
+    warp's share), AUG_CPU_FILES of them on the CPU against it, and the
+    editor's data model."""
+    from PIL import Image
+
+    from spnet_tpu_torch.cli import augment_preproc, gen_bboxes, \
+        gen_fake_espi, parse_zooniverse, setup_data
+    from spnet_tpu_torch.data.csvio import paired_file_lists, read_raw_meta
+
+    def pngs(d):
+        return sorted(f for f in os.listdir(d) if f.endswith(".png"))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        raw, parsed = os.path.join(tmp, "raw"), os.path.join(tmp, "parsed")
+        t0 = time.perf_counter()
+        gen_fake_espi.main(["-d", raw, "-n", str(PREP_FRAMES), "--seed",
+                            str(seed), "--device", DEVICE])
+        src = os.path.join(raw, "Train")
+        gen_s = time.perf_counter() - t0
+        want = _zooniverse_csv(src, os.path.join(tmp, "agg.csv"))
+        n_rows = parse_zooniverse.main(["-i", os.path.join(tmp, "agg.csv"),
+                                        "-p", src, "-o", parsed])
+        for name, rows in want.items():
+            got = read_raw_meta(os.path.join(parsed, name[:-4] + ".csv"))
+            if got.shape != (len(rows), 6) or not np.allclose(
+                    got, rows, rtol=0, atol=1e-9):
+                fail(f"parse-zooniverse: {name} rows {got} != {rows}")
+        if pngs(parsed) != sorted(want) or n_rows != sum(
+                len(r) for r in want.values()):
+            fail(f"parse-zooniverse: {n_rows} rows, images {pngs(parsed)}")
+        n_boxes = gen_bboxes.main(["-d", parsed, "-o",
+                                   os.path.join(tmp, "boxes.csv")])
+        with open(os.path.join(tmp, "boxes.csv")) as f:
+            box_lines = f.read().splitlines()
+        if n_boxes != n_rows or len(box_lines) != n_rows + 1:
+            fail(f"gen-bboxes: {n_boxes} boxes of {n_rows} rows")
+        ds = os.path.join(tmp, "ds")
+        setup_data.main(["-o", parsed, "--name", ds, "-a", str(PREP_AUGS),
+                         "--device", DEVICE])
+        n = len(want)
+        n_train = sum(r / n < 0.80 for r in range(n))
+        got = (len(pngs(os.path.join(ds, "Train"))),
+               len(pngs(os.path.join(ds, "Val"))))
+        if got != (n_train * (1 + PREP_AUGS), n - n_train):
+            fail(f"setup-data: Train/Val PNGs {got}")
+        print(f"[prep] gen-fake-espi {PREP_FRAMES} native frames "
+              f"({gen_s:.2f} s) -> parse-zooniverse {n_rows} rows of {n} "
+              f"frames (the swapped axes and the duplicate undone) -> "
+              f"gen-bboxes {n_boxes} boxes -> setup-data -a {PREP_AUGS}: "
+              f"Train {got[0]} PNGs ({n_train} originals, {PREP_AUGS} variants "
+              f"each), Val {got[1]}")
+
+        imgs, metas = paired_file_lists(parsed + os.sep)
+        card, cpu = os.path.join(tmp, "aug_card"), os.path.join(tmp,
+                                                                "aug_cpu")
+        for d, k in ((card, AUG_FILES), (cpu, AUG_CPU_FILES)):
+            os.makedirs(d)
+            for f in imgs[:k] + metas[:k]:
+                shutil.copy(f, d)
+        stats = augment_preproc.main(["-d", card, "-n", str(AUG_N),
+                                      "--device", DEVICE])
+        augment_preproc.main(["-d", cpu, "-n", str(AUG_N), "--device",
+                              "cpu"])
+        if len(pngs(card)) != AUG_FILES * (1 + AUG_N):
+            fail(f"augment: {len(pngs(card))} PNGs")
+        names = pngs(cpu)
+        if len(names) != AUG_CPU_FILES * (1 + AUG_N) or \
+                not set(names) <= set(pngs(card)):
+            fail("augment: the CPU's file names are not the card's")
+        worst_px = worst_row = 0.0
+        differ = 0
+        for f in names:
+            a = np.asarray(Image.open(os.path.join(card, f)), np.int16)
+            b = np.asarray(Image.open(os.path.join(cpu, f)), np.int16)
+            worst_px = max(worst_px, float(np.abs(a - b).max()))
+            differ += int((a != b).sum())
+            ra = read_raw_meta(os.path.join(card, f[:-4] + ".csv"))
+            rb = read_raw_meta(os.path.join(cpu, f[:-4] + ".csv"))
+            if ra.shape != rb.shape:
+                fail(f"augment: {f} rows {ra.shape} vs {rb.shape}")
+            if ra.size:
+                worst_row = max(worst_row, float(np.abs(ra - rb).max()))
+        files_s = stats["files"] / stats["seconds"]
+        variants_s = stats["variants"] / stats["seconds"]
+        warp = stats["warp_seconds"] / stats["seconds"]
+        print(f"[prep] augment -n {AUG_N} of {AUG_FILES} files on the card: "
+              f"{stats['variants']} variants in {stats['seconds']:.3f} s, "
+              f"{files_s:.3f} files/s ({variants_s:.1f} variants/s); the "
+              f"warp (upload, warps, one host copy) {100 * warp:.2f} % of "
+              f"the command's time, the rest PNG "
+              f"and CSV writes on the host  [{smi}]")
+        print(f"[prep] augment, card vs CPU on {AUG_CPU_FILES} files "
+              f"({len(names)} PNGs): names identical; rows max |diff| "
+              f"{worst_row:.3g} (tol {AUG_ROWS_ATOL}); pixels max |diff| "
+              f"{worst_px:.0f} gray level(s) (tol {AUG_PIXEL_LEVELS}), "
+              f"{differ} pixel(s) apart")
+        if worst_row > AUG_ROWS_ATOL or worst_px > AUG_PIXEL_LEVELS:
+            fail(f"augment: card vs CPU rows {worst_row}, pixels "
+                 f"{worst_px}")
+        print(f"[prep] ellipse-editor: no display on this host, its data "
+              f"model only: {_editor_model(metas[0], tmp)}")
+    return dict(files_per_s=files_s, warp_share=warp, **stats)
+
+
+# ---------------------------------------------------------------------------
+# phase 16: data-parallel training
+# ---------------------------------------------------------------------------
+
+DP_TURN_FRAMES = 1024     # train frames of each timed run (8 steps an epoch)
+DP_TURNS = ("group", "none", "none", "group")
+DP_CHILD_TIMEOUT = 900    # seconds a rank of phase 16(b) may take
+DP_PROBE_TIMEOUT = 180    # ... the NCCL probe's
+DP_PROFILE_STEPS = 5      # traced steps of each turn of `_dp_step_profile`
+# DDP collects runtime statistics, syncing the host on CUDA events, in its
+# first 10 iterations (and every 100th): `_dp_step_profile` times steps
+# 3-10 and 13-22 apart
+DDP_SAMPLED_ITERS = 10
+DP_F32_BATCH = 16
+DP_F32_RTOL = 1e-5        # 2 ranks vs 1 process, f32 loss and head gradient
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _start_group(backend: str = "nccl"):
+    """A process group of one rank (this process) on the card."""
+    from spnet_tpu_torch.parallel.multihost import maybe_initialize
+
+    if not maybe_initialize(f"localhost:{_free_port()}", 1, 0,
+                            backend=backend, device=DEVICE):
+        fail("maybe_initialize did not start the group")
+
+
+def _dp_bitwise(cfg, train_ds, seed: int) -> list:
+    """Two steps from one seed, augmentation and dropout off, in a 1-rank
+    NCCL group (DDP) and without a group: the losses bitwise equal (cuDNN
+    deterministic during the check)."""
+    import dataclasses
+
+    from spnet_tpu_torch.models.spnet import build_model
+    from spnet_tpu_torch.train.loop import epoch_order
+    from spnet_tpu_torch.train.state import create_train_state
+    from spnet_tpu_torch.train.steps import make_train_step
+
+    rows = torch.from_numpy(epoch_order(len(train_ds.x), TRAIN_BATCH, seed,
+                                        0)[:2]).to(DEVICE)
+    x_all = torch.from_numpy(train_ds.x).to(DEVICE)
+    y_all = torch.from_numpy(train_ds.y).to(DEVICE)
+    model_cfg = dataclasses.replace(cfg.model, dropout_rate=0.0)
+    losses, det = {}, torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for grouped in (True, False):
+            if grouped:
+                _start_group()
+            try:
+                model = build_model(model_cfg, device=DEVICE,
+                                    generator=torch.Generator().manual_seed(
+                                        seed))
+                state = create_train_state(model, lambda step: 1e-5)
+                step = make_train_step(model, cfg.loss_weights,
+                                       augment=False)
+                gen = torch.Generator(device=DEVICE).manual_seed(seed)
+                losses[grouped] = [float(step(state, x_all, y_all, idx,
+                                              gen)[1]["loss"])
+                                   for idx in rows]
+                del state, model, step
+            finally:
+                if grouped:
+                    torch.distributed.destroy_process_group()
+    finally:
+        torch.backends.cudnn.deterministic = det
+    print(f"[dp] 2 steps, augmentation and dropout off: 1-rank NCCL group "
+          f"(DDP) {losses[True]} vs no group {losses[False]}: bitwise "
+          f"{losses[True] == losses[False]}")
+    if losses[True] != losses[False]:
+        fail(f"dp: 1-rank group losses {losses[True]} != {losses[False]}")
+    torch.cuda.empty_cache()
+    return losses[True]
+
+
+def _device_by_kernel(path: str) -> dict:
+    """From a torch.profiler chrome trace: device microseconds by kernel,
+    copy and set name."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    out = {}
+    for e in events:
+        if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") \
+                and "dur" in e:
+            out[e["name"]] = out.get(e["name"], 0.0) + e["dur"]
+    return out
+
+
+def _dp_step_profile(cfg, train_ds, tmp: str, smi: str) -> dict:
+    """Xception-331 bf16 train steps at b=128 (augmentation and dropout
+    on) in a 1-rank NCCL group (DDP) and without a group, in turns
+    DP_TURNS, each turn with its own model from one seed: after 2 warm-up
+    steps, steps 3-10 (inside DDP's sampled iterations) and steps 13-22
+    timed to the host value of their last loss, then DP_PROFILE_STEPS
+    steps under `utils.profiling.trace`.  From each trace, a step's device
+    time (all kernels, copies and sets), its NCCL kernels' and its device
+    copies' time, and the idle share; and the kernels by which the group's
+    traces exceed the others (DDP's bucket copies and the all-reduce)."""
+    from spnet_tpu_torch.models.spnet import build_model
+    from spnet_tpu_torch.train.state import create_train_state
+    from spnet_tpu_torch.train.steps import make_train_step
+    from spnet_tpu_torch.utils.profiling import trace
+
+    feed = [torch.from_numpy(a).to(DEVICE) for a in (train_ds.x,
+                                                     train_ds.y)]
+    idx = torch.arange(TRAIN_BATCH, device=DEVICE)
+    res = {"group": [], "none": []}
+    by_name = {"group": {}, "none": {}}
+    for turn, mode in enumerate(DP_TURNS):
+        if mode == "group":
+            _start_group()
+        try:
+            model = build_model(cfg.model, device=DEVICE,
+                                generator=torch.Generator().manual_seed(0))
+            state = create_train_state(model, lambda step: 1e-5)
+            step = make_train_step(model, cfg.loss_weights)
+            gen = torch.Generator(device=DEVICE).manual_seed(0)
+
+            def run(n):
+                for _ in range(n):
+                    _, met = step(state, *feed, idx, gen)
+                return float(met["loss"])
+
+            run(2)
+            _, early = _sync_s(lambda: run(DDP_SAMPLED_ITERS - 2))
+            run(2)
+            _, sec = _sync_s(lambda: run(10))
+            logdir = os.path.join(tmp, f"dp_profile_{turn}")
+            with trace(logdir):
+                run(DP_PROFILE_STEPS)
+            del state, model, step
+        finally:
+            if mode == "group":
+                torch.distributed.destroy_process_group()
+        torch.cuda.empty_cache()
+        (path,) = [os.path.join(logdir, f) for f in os.listdir(logdir)]
+        kern = _device_by_kernel(path)
+        for k, v in kern.items():
+            by_name[mode][k] = by_name[mode].get(k, 0.0) + v
+        per = 1.0 / DP_PROFILE_STEPS
+        res[mode].append(dict(
+            early_ms=1e3 * early / (DDP_SAMPLED_ITERS - 2),
+            step_ms=1e3 * sec / 10, device_us=per * sum(kern.values()),
+            nccl_us=per * sum(v for k, v in kern.items()
+                              if "nccl" in k.lower()),
+            copy_us=per * sum(v for k, v in kern.items()
+                              if k.startswith("Memcpy")),
+            idle=device_idle(path)["idle"]))
+    n = {m: DP_PROFILE_STEPS * DP_TURNS.count(m) for m in res}
+    extra = sorted(((by_name["group"][k] / n["group"]
+                     - by_name["none"].get(k, 0.0) / n["none"], k)
+                    for k in by_name["group"]), reverse=True)[:6]
+
+    def col(mode, key, fmt):
+        return "/".join(format(r[key], fmt) for r in res[mode])
+
+    print(f"[dp] the step with and without a 1-rank NCCL group, "
+          f"Xception-331 bf16 b={TRAIN_BATCH}, in turns {DP_TURNS}: ms a "
+          f"step, steps 3-{DDP_SAMPLED_ITERS} group "
+          f"{col('group', 'early_ms', '.2f')}, none "
+          f"{col('none', 'early_ms', '.2f')}; steps 13-22 group "
+          f"{col('group', 'step_ms', '.2f')}, none "
+          f"{col('none', 'step_ms', '.2f')}; {DP_PROFILE_STEPS} traced "
+          f"steps a turn, a step's device time group "
+          f"{col('group', 'device_us', '.1f')} us, none "
+          f"{col('none', 'device_us', '.1f')} us; NCCL kernels group "
+          f"{col('group', 'nccl_us', '.1f')} us; device copies group "
+          f"{col('group', 'copy_us', '.1f')} us, none "
+          f"{col('none', 'copy_us', '.1f')} us; idle share group "
+          f"{col('group', 'idle', '.4f')}, none {col('none', 'idle', '.4f')}"
+          f"  [{smi}]")
+    print("[dp] what the group adds a step (device us, group less none, "
+          "mean over the turns): " + "; ".join(
+              f"{k[:70]} {v:+.1f}" for v, k in extra))
+    if any(r["device_us"] <= 0 for m in res for r in res[m]):
+        fail("dp: a profiled turn shows no device time")
+    return dict(turns=res, extra=[(k, v) for v, k in extra])
+
+
+def _spawn_ranks(mode: str, world: int, tmp: str, seed: int,
+                 timeout: float) -> list:
+    """`chip_smoke.py --dp-child` ranks of one group on this card; returns
+    [(returncode, output)] by rank, every process ended."""
+    port = str(_free_port())
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--seed", str(seed),
+         "--dp-child", mode, str(r), str(world), port, tmp],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(world)]
+    outs = []
+    try:
+        for p in procs:
+            try:
+                outs.append(p.communicate(timeout=timeout)[0])
+            except subprocess.TimeoutExpired:
+                p.kill()
+                outs.append(p.communicate()[0] + "\n(timed out)")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return [(p.returncode, out) for p, out in zip(procs, outs)]
+
+
+def _f32_dp_step(model, x16, y16, seed: int):
+    """One float32 forward + backward of `model` (a DDP wrapper inside a
+    group) on this rank's rows of the global batch (x16, y16): the loss
+    averaged over the ranks and the head kernel's gradient (DDP's average
+    over the ranks)."""
+    from spnet_tpu_torch.config import LossWeights
+    from spnet_tpu_torch.parallel import mesh
+    from spnet_tpu_torch.train.steps import _prep_x, forward_loss
+
+    core = getattr(model, "module", model)
+    core.train()
+    loss, _ = forward_loss(
+        model, mesh.local_rows(_prep_x(x16)), mesh.local_rows(y16),
+        torch.Generator(device=x16.device).manual_seed(seed), LossWeights())
+    loss.backward()
+    loss = loss.detach()
+    if mesh.world_size() > 1:
+        torch.distributed.all_reduce(loss)
+        loss /= mesh.world_size()
+    return float(loss), core.final_output.weight.grad.detach()
+
+
+def _dp_data(seed: int):
+    """Phase 16's seeded global datasets: TRAIN_FRAMES + VAL_FRAMES."""
+    from spnet_tpu_torch.config import ExperimentConfig
+
+    cfg = ExperimentConfig()
+    return _seeded_split((TRAIN_FRAMES, VAL_FRAMES), cfg.model.input_size,
+                         cfg.grid, seed)
+
+
+def dp_child(mode: str, rank: int, world: int, port: str, tmp: str,
+             seed: int):
+    """One rank of phase 16(b), on cuda:0.  'nccl-probe': an NCCL group and
+    one all-reduce (NCCL refuses two ranks on one device).  'gloo': a gloo
+    group (the backend passed explicitly), `train_network` on this rank's
+    shards (b=TRAIN_BATCH global, 2 epochs), then one float32 step of
+    DP_F32_BATCH through DDP; writes tmp/gloo_r{rank}.npz."""
+    import dataclasses
+
+    from spnet_tpu_torch.config import ExperimentConfig, ModelConfig, \
+        TrainConfig
+    from spnet_tpu_torch.models.layers import BatchNorm
+    from spnet_tpu_torch.models.spnet import build_model
+    from spnet_tpu_torch.parallel import mesh
+    from spnet_tpu_torch.parallel.multihost import maybe_initialize
+    from spnet_tpu_torch.train.loop import train_network
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = "cuda:0" if DEVICE == "cuda" else DEVICE  # both on one card
+    maybe_initialize(f"localhost:{port}", world, rank,
+                     backend="nccl" if mode == "nccl-probe" else "gloo",
+                     device=device)
+    if mode == "nccl-probe":
+        t = torch.ones(1, device=device)
+        torch.distributed.all_reduce(t)
+        torch.cuda.synchronize()
+        print(f"rank {rank}: NCCL all-reduce on {device} gave {t.item()}")
+        torch.distributed.destroy_process_group()
+        return
+    cfg = ExperimentConfig(train=TrainConfig(batch_size=TRAIN_BATCH,
+                                             epochs=2, save_every=1,
+                                             seed=seed))
+    train_g, val_g = _dp_data(seed)
+
+    def shard(ds):
+        return dataclasses.replace(
+            ds, x=mesh.local_rows(ds.x), y=mesh.local_rows(ds.y),
+            file_list=list(mesh.local_rows(np.array(ds.file_list))))
+
+    _zero_counts()
+    state, hist = train_network(
+        cfg, shard(train_g), shard(val_g), device,
+        log_dir=os.path.join(tmp, f"log_r{rank}"),
+        ckpt_dir=os.path.join(tmp, "ckpt"), render_overlays=False)
+    counts = _counts()
+    bns = [m for m in state.model.modules() if isinstance(m, BatchNorm)]
+    stats = torch.cat([torch.cat([m.running_mean, m.running_var])
+                       for m in bns]).cpu().numpy()
+    step = state.step
+    del state
+    torch.cuda.empty_cache()
+
+    model = build_model(ModelConfig(compute_dtype="float32"), device=device,
+                        generator=torch.Generator().manual_seed(seed))
+    ddp = torch.nn.parallel.DistributedDataParallel(
+        model, device_ids=[0] if device == "cuda:0" else None)
+    x16 = torch.from_numpy(train_g.x[:DP_F32_BATCH]).to(device)
+    y16 = torch.from_numpy(train_g.y[:DP_F32_BATCH]).to(device)
+    loss, grad = _f32_dp_step(ddp, x16, y16, seed)
+    np.savez(os.path.join(tmp, f"gloo_r{rank}.npz"),
+             losses=np.array([h["train_loss"] for h in hist]),
+             img_per_sec=np.array([h["img_per_sec"] for h in hist]),
+             val=np.array([h["val_comps"]["total"] for h in hist]),
+             stats=stats, step=np.array(step), f32_loss=np.array(loss),
+             head_grad=grad.cpu().numpy(), counts=json.dumps(counts))
+    torch.distributed.destroy_process_group()
+
+
+def _dp_two_ranks(seed: int, smi: str) -> dict:
+    """Phase 16(b): the NCCL probe, then 2 gloo ranks on this card against
+    each other and against one process."""
+    from spnet_tpu_torch.config import ModelConfig
+    from spnet_tpu_torch.models.spnet import build_model
+
+    with tempfile.TemporaryDirectory() as tmp:
+        probe = _spawn_ranks("nccl-probe", 2, tmp, seed, DP_PROBE_TIMEOUT)
+        refused = [rc != 0 and "Duplicate GPU" in out for rc, out in probe]
+        line = next((ln.strip() for _, out in probe
+                     for ln in out.splitlines() if "Duplicate GPU" in ln),
+                    "no 'Duplicate GPU' message")
+        print(f"[dp] two NCCL ranks on one card: exit codes "
+              f"{[rc for rc, _ in probe]}, refused {refused}: {line[:300]}"
+              f"  -> the 2-rank run below uses gloo, passed explicitly")
+        t0 = time.perf_counter()
+        ranks = _spawn_ranks("gloo", 2, tmp, seed, DP_CHILD_TIMEOUT)
+        seconds = time.perf_counter() - t0
+        for r, (rc, out) in enumerate(ranks):
+            if rc != 0:
+                print(out[-6000:])
+                fail(f"dp: gloo rank {r} exited {rc}")
+        res = [dict(np.load(os.path.join(tmp, f"gloo_r{r}.npz")))
+               for r in range(2)]
+    counts = [json.loads(str(r["counts"])) for r in res]
+    steps = 2 * (TRAIN_FRAMES // TRAIN_BATCH)
+    val_batches = 2 * 2  # a val shard of VAL_FRAMES / 2 in one batch + warm-up
+    want = _want_counts(ModelConfig(), predict_batches=val_batches,
+                        train_steps=steps)
+    print(f"[dp] 2 gloo ranks on one card, b={TRAIN_BATCH} global "
+          f"({TRAIN_BATCH // 2} a rank), 2 epochs of "
+          f"{TRAIN_FRAMES // TRAIN_BATCH} steps, {seconds:.1f} s with the "
+          f"processes' start: losses {res[0]['losses'].tolist()} / "
+          f"{res[1]['losses'].tolist()}, steps {int(res[0]['step'])}; "
+          f"launches per rank {counts}; val (each rank's shard) "
+          f"{res[0]['val'].tolist()} / {res[1]['val'].tolist()}")
+    print(f"[dp] 2 gloo ranks sharing one card (two processes, host-staged "
+          f"all-reduces; not a multi-GPU rate): train images/s "
+          f"{res[0]['img_per_sec'].tolist()}  [{smi}]")
+    if not np.array_equal(res[0]["losses"], res[1]["losses"]) or \
+            not np.isfinite(res[0]["losses"]).all():
+        fail("dp: the ranks' train losses differ")
+    if not np.array_equal(res[0]["stats"], res[1]["stats"]):
+        fail("dp: the ranks' BatchNorm running statistics differ")
+    if any(c != want for c in counts) or int(res[0]["step"]) != steps:
+        fail(f"dp: launches {counts} != {want} a rank, step "
+             f"{int(res[0]['step'])}")
+
+    model = build_model(ModelConfig(compute_dtype="float32"), device=DEVICE,
+                        generator=torch.Generator().manual_seed(seed))
+    train_g, _ = _dp_data(seed)
+    loss1, grad1 = _f32_dp_step(
+        model, torch.from_numpy(train_g.x[:DP_F32_BATCH]).to(DEVICE),
+        torch.from_numpy(train_g.y[:DP_F32_BATCH]).to(DEVICE), seed)
+    del model
+    torch.cuda.empty_cache()
+    grad1 = grad1.cpu().numpy()
+    l_rel = max(abs(float(r["f32_loss"]) - loss1) / abs(loss1) for r in res)
+    g_rel = max(float(np.abs(r["head_grad"] - grad1).max()
+                      / np.abs(grad1).max()) for r in res)
+    print(f"[dp] float32 step, b={DP_F32_BATCH} (dropout on, one global "
+          f"mask), 2 gloo ranks vs 1 process on the card: loss rel "
+          f"{l_rel:.2e}, head-kernel gradient rel {g_rel:.2e} (worst rank; "
+          f"tol {DP_F32_RTOL})")
+    if not (l_rel <= DP_F32_RTOL and g_rel <= DP_F32_RTOL):
+        fail(f"dp: f32 step 2 ranks vs 1 process: loss {l_rel}, gradient "
+             f"{g_rel}")
+    return dict(counts=counts, refused=refused, loss_rel=l_rel,
+                grad_rel=g_rel, img_per_sec=res[0]["img_per_sec"].tolist())
+
+
+def phase_dp(seed: int, smi: str) -> dict:
+    """Phase 16: (a) a 1-rank NCCL group through `train_network` (2 epochs,
+    resumed to 3; launches), 2 steps bitwise against no group, and the
+    train rate with and without the group in turns; (b) two ranks on the
+    one card (`_dp_two_ranks`)."""
+    import dataclasses
+
+    from spnet_tpu_torch.config import ExperimentConfig, TrainConfig
+
+    cfg = ExperimentConfig(train=TrainConfig(
+        batch_size=TRAIN_BATCH, epochs=2, save_every=1, seed=seed))
+    train_ds, val_ds = _dp_data(seed)
+    _start_group()
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            state, hist, counts = _train_run(cfg, train_ds, val_ds, tmp, smi,
+                                             "dp nccl-1")
+            del state
+            cfg3 = dataclasses.replace(cfg, train=dataclasses.replace(
+                cfg.train, epochs=3))
+            state, _, _ = _train_run(cfg3, train_ds, val_ds, tmp, smi,
+                                     "dp nccl-1")
+            if state.step != 3 * (TRAIN_FRAMES // TRAIN_BATCH):
+                fail(f"dp: resumed run ended at step {state.step}")
+            del state
+    finally:
+        torch.distributed.destroy_process_group()
+    torch.cuda.empty_cache()
+    bitwise = _dp_bitwise(cfg, train_ds, seed)
+
+    turn_train, turn_val = _seeded_split((DP_TURN_FRAMES, VAL_FRAMES),
+                                         cfg.model.input_size, cfg.grid,
+                                         seed + 1)
+    rates = {"group": [], "none": []}
+    for mode in DP_TURNS:
+        if mode == "group":
+            _start_group()
+        try:
+            with tempfile.TemporaryDirectory() as tmp:
+                state, hist_t, _ = _train_run(cfg, turn_train, turn_val, tmp,
+                                              smi, f"dp turns {mode}")
+                del state
+        finally:
+            if mode == "group":
+                torch.distributed.destroy_process_group()
+        torch.cuda.empty_cache()
+        rates[mode].append(hist_t[-1]["img_per_sec"])
+    print(f"[dp] train images/s at b={TRAIN_BATCH}, epoch 2 of "
+          f"{DP_TURN_FRAMES} frames, in turns {DP_TURNS}: 1-rank NCCL "
+          f"group (DDP) {[round(v, 1) for v in rates['group']]}, no group "
+          f"{[round(v, 1) for v in rates['none']]}  [{smi}]")
+    with tempfile.TemporaryDirectory() as tmp:
+        profile = _dp_step_profile(cfg, turn_train, tmp, smi)
+    two = _dp_two_ranks(seed, smi)
+    return dict(counts=counts, bitwise=bitwise, rates=rates,
+                profile=profile, two=two)
+
+
 def _late_launches(name: str, feeds: dict, remat: dict, pre: dict) -> dict:
     """A loss kernel's launches on the paths of phases 11, 12 and 14."""
     return dict(feeds_launches={f: feeds[f]["counts"][name] for f in FEEDS},
@@ -2235,11 +2875,18 @@ def _late_launches(name: str, feeds: dict, remat: dict, pre: dict) -> dict:
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--dp-child", nargs=5,
+                   metavar=("MODE", "RANK", "WORLD", "PORT", "DIR"),
+                   help="run one rank of phase 16(b) (started by phase 16)")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
         raise SystemExit(1)
+    if args.dp_child:
+        mode, rank, world, port, tmp = args.dp_child
+        dp_child(mode, int(rank), int(world), port, tmp, args.seed)
+        return
     smi = phase_device()
     t0 = time.perf_counter()
     phase_build()
@@ -2260,13 +2907,26 @@ def main(argv=None):
     export = phase_export(args.seed, smi)
     pre = phase_pretrained(args.seed, smi)
     print(f"[done] phases 11-14 took {time.perf_counter() - t1:.1f} s")
+    t2 = time.perf_counter()
+    prep = phase_prep(args.seed, smi)
+    dp = phase_dp(args.seed, smi)
+    print(f"[done] phases 15-16 took {time.perf_counter() - t2:.1f} s")
     print(f"[done] {time.perf_counter() - t0:.1f} s after the device phase; "
           f"train {train['img_per_sec']:.1f} images/s at b={TRAIN_BATCH}; "
           f"zoo train images/s "
           f"{ {b: round(r['img_per_sec'], 1) for b, r in zoo.items()} }; "
           f"TTA {tta['predict_fps']:.1f} frames/s; synthetic feed "
           f"{syn['frames_per_s'][1]:.1f} frames/s, geo train "
-          f"{syn['img_per_sec'][1]:.1f} images/s  [{smi}]")
+          f"{syn['img_per_sec'][1]:.1f} images/s; augment "
+          f"{prep['files_per_s']:.3f} files/s; 1-rank group / no group "
+          f"train images/s {[round(v, 1) for v in dp['rates']['group']]} / "
+          f"{[round(v, 1) for v in dp['rates']['none']]}  [{smi}]")
+
+    def dp_launches(name):
+        # phase 16: the 1-rank NCCL group's 2-epoch run, and each gloo
+        # rank's run on the shared card
+        return {"nccl_1rank": dp["counts"][name],
+                "gloo_2rank": [c[name] for c in dp["two"]["counts"]]}
     # K2-K4 at their timed shapes (TRAIN_BATCH x 576 float32): each input
     # read once, each output written once; their few operations an element
     # are far below the bytes' time.  ms: device time per call from a CUDA
@@ -2317,6 +2977,7 @@ def main(argv=None):
         "export_launches": export["export"]["counts"]["sepconv_infer"],
         "export_ss_launches": export["export ss"]["counts"][
             "sepconv_infer"],
+        "dp_launches": dp_launches("sepconv_infer"),
     },
         # the loss alone; the train step's forward also writes the
         # gradient (fused_ms, fused_bound_ms)
@@ -2336,6 +2997,7 @@ def main(argv=None):
                             for b, r in zoo.items()},
               geo_launches=syn["train_counts"]["spnet_loss_fwd"],
               cli_trace_launches=syn["cli"]["ours"].get("loss_kernel", 0),
+              dp_launches=dp_launches("spnet_loss_fwd"),
               **_late_launches("spnet_loss_fwd", feeds, remat, pre)),
         # g * dloss/dy_pred from y_true, y_pred and g; the train step's
         # backward scales the kept gradient (scale_ms, scale_bound_ms)
@@ -2348,6 +3010,7 @@ def main(argv=None):
               geo_launches=syn["train_counts"]["spnet_loss_bwd"],
               cli_trace_launches=syn["cli"]["ours"].get(
                   "grad_scale_kernel", 0),
+              dp_launches=dp_launches("spnet_loss_bwd"),
               **_late_launches("spnet_loss_bwd", feeds, remat, pre)),
         small("selective_sigmoid_fwd", k4_src, k4_at,
               heads["ss"]["predict_counts"]["selective_sigmoid_fwd"],

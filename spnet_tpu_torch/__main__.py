@@ -1,18 +1,25 @@
 """Unified CLI: `python -m spnet_tpu_torch <command> [args...]`.
 
-Commands ported so far (the training and serving paths, the synthetic
-data generator and the serving export):
+Commands (the JAX package's, but for `bench`, the JAX benchmark's):
 
   train            train, then evaluate            (train_spnet.py)
   evaluate         score on a labeled dataset      (evaluate_spnet.py)
   predict          label-free batch inference      (predict_spnet.py)
   gen-fake-espi    synthetic ESPI frames + labels  (gen_fake_espi.py)
   export           checkpoint -> torch.export serving artifact (—)
+  setup-data       Train/Val split + augmentation  (setup_data.py)
+  augment          offline flip/rotate/translate   (augment_preproc.py)
+  parse-zooniverse crowd CSV -> per-image CSVs     (parse_zooniverse_csv.py)
+  gen-bboxes       ellipse -> bounding-box CSV     (gen_bboxes_csv.py)
+  ellipse-editor   Tk annotation editor            (ellipse_editor.py)
 
 train, evaluate, predict and export take a port checkpoint directory
 (`-w`, see `io/checkpoint.py`; a JAX checkpoint converts with
 `scripts/flax_ckpt_to_torch.py`; `train` resumes from it when present).
-All take `--device` (default `cuda`).
+train, evaluate, predict, gen-fake-espi, export, setup-data and augment
+take `--device` (default `cuda`).  Data-parallel training:
+`torchrun --nproc_per_node=N -m spnet_tpu_torch train ...` (or the
+SPNET_COORDINATOR / SPNET_NUM_PROCESSES / SPNET_PROCESS_ID variables).
 """
 
 from __future__ import annotations
@@ -26,6 +33,11 @@ _COMMANDS = {
     "predict": "spnet_tpu_torch.cli.predict",
     "gen-fake-espi": "spnet_tpu_torch.cli.gen_fake_espi",
     "export": "spnet_tpu_torch.cli.export",
+    "setup-data": "spnet_tpu_torch.cli.setup_data",
+    "augment": "spnet_tpu_torch.cli.augment_preproc",
+    "parse-zooniverse": "spnet_tpu_torch.cli.parse_zooniverse",
+    "gen-bboxes": "spnet_tpu_torch.cli.gen_bboxes",
+    "ellipse-editor": "spnet_tpu_torch.cli.ellipse_editor",
 }
 
 

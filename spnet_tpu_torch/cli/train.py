@@ -10,6 +10,17 @@ weights) as in JAX.  After
 training it evaluates on Test/ (Val/ when there is no Test/), predicts over
 `--predict_dir` into `<log_dir>/predict/` when that is given, and writes
 the final weights into the log directory.
+
+Data-parallel training: launched as `torchrun --nproc_per_node=N -m
+spnet_tpu_torch train ...`, or with SPNET_COORDINATOR=host:port,
+SPNET_NUM_PROCESSES (the number of cards, not of hosts as in JAX),
+SPNET_PROCESS_ID and SPNET_LOCAL_RANK set for every process (the JAX
+package's variables, and the card's index on its host), each process
+starts the group (NCCL on the card, gloo with `--device cpu`), loads its
+own shard of Train/ and Val/, and trains on `cuda:LOCAL_RANK` (or
+SPNET_LOCAL_RANK) with `-b` the global batch; rank 0 alone
+evaluates, predicts and writes the final weights, as it alone writes the
+logs and the checkpoint.
 """
 
 from __future__ import annotations
@@ -17,6 +28,8 @@ from __future__ import annotations
 import argparse
 import os
 import sys
+
+import torch
 
 from spnet_tpu_torch.cli.common import (
     add_device_arg,
@@ -30,6 +43,9 @@ from spnet_tpu_torch.eval.evaluate import evaluate_network
 from spnet_tpu_torch.eval.predict import predict_network
 from spnet_tpu_torch.io.checkpoint import save_train_state
 from spnet_tpu_torch.data.dataset import build_dataset
+from spnet_tpu_torch.parallel import mesh
+from spnet_tpu_torch.parallel.multihost import maybe_initialize, \
+    process_shard
 from spnet_tpu_torch.train.loop import train_network
 
 
@@ -91,20 +107,30 @@ def main(argv=None):
     print("Command line ~= \n", " ".join(sys.argv))
     print("args = ", args)
     device = resolve_device(args.device)
+    # a data-parallel job's process joins its group (a no-op otherwise),
+    # then loads only its own disjoint file shard; the loop assembles the
+    # global training set from the shards (parallel/multihost.py)
+    maybe_initialize(device=device)
+    shard_i, shard_n = process_shard()
+    device = mesh.local_device(device)
     cfg = config_from_args(args, args.grid)
     log_dir = timestamped_log_dir(args.name)
     print("Logging to", log_dir)
+    if shard_n > 1:
+        print(f"data-parallel: rank {shard_i}/{shard_n} on {device}, file "
+              f"shard {shard_i} of {shard_n}")
 
     ovf = "drop" if args.drop_overflow else "raise"
     size = cfg.model.input_size or None
     train_ds = build_dataset(
         os.path.join(args.datapath, "Train"), cfg.grid,
         load_frac=args.fraction, batch_size=args.batch_size,
-        input_size=size, seed=args.random_seed, on_overflow=ovf)
+        input_size=size, seed=args.random_seed, on_overflow=ovf,
+        shard_index=shard_i, num_shards=shard_n)
     val_ds = build_dataset(
         os.path.join(args.datapath, "Val"), cfg.grid,
         batch_size=args.batch_size, shuffle=False, input_size=size,
-        on_overflow=ovf)
+        on_overflow=ovf, shard_index=shard_i, num_shards=shard_n)
     if args.profile:
         from spnet_tpu_torch.utils.profiling import trace
 
@@ -114,6 +140,10 @@ def main(argv=None):
     else:
         state, _ = train_network(cfg, train_ds, val_ds, device,
                                  log_dir=log_dir, ckpt_dir=args.weights)
+    if shard_n > 1:  # the rest runs on rank 0 alone, without the group
+        torch.distributed.destroy_process_group()
+        if shard_i > 0:
+            return
 
     if not args.no_eval:
         print("\n----------------------------\nStarting model evaluation...")

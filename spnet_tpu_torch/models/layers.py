@@ -21,8 +21,11 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.distributed.nn.functional as dist_fn
 import torch.nn.functional as F
 from torch import nn
+
+from spnet_tpu_torch.parallel import mesh
 
 from spnet_tpu_torch.ops.sepconv import (
     fold_bn,
@@ -98,7 +101,13 @@ class BatchNorm(nn.Module):
     train-mode pass normalizes with the batch statistics and leaves the
     running ones alone: the recompute of a checkpointed backbone
     (`models/spnet.py`, remat) runs so, and flax keeps only the first
-    pass's update."""
+    pass's update.
+
+    Inside a process group of more than one rank (`parallel/mesh.py`) the
+    train-mode statistics are the global batch's, as under JAX's mesh: the
+    ranks' equal batches give their moments E[x] and E[x^2] to one
+    all-reduce, so every rank normalizes alike and keeps the same running
+    statistics.  Without a group the arithmetic is unchanged."""
 
     def __init__(self, features: int, eps: float = BN_EPS,
                  momentum: float = BN_MOMENTUM, scale: bool = True):
@@ -128,8 +137,17 @@ class BatchNorm(nn.Module):
         if self.training:
             dims = tuple(range(x.dim() - 1))
             mean = xf.mean(dims)
-            var = torch.clamp_min(torch.square(xf).mean(dims)
-                                  - torch.square(mean), 0.0)
+            mean_sq = torch.square(xf).mean(dims)
+            n_ranks = mesh.world_size()
+            if n_ranks > 1:
+                # global-batch statistics, as XLA's all-reduce over the
+                # mesh gives them: the ranks' batches are equal, so the
+                # global moments are the means of the local ones.  One
+                # autograd-aware all-reduce a layer; its backward
+                # all-reduces the gradients of the moments.
+                moments = dist_fn.all_reduce(torch.cat([mean, mean_sq]))
+                mean, mean_sq = (moments / n_ranks).split(mean.shape[0])
+            var = torch.clamp_min(mean_sq - torch.square(mean), 0.0)
             if self.update_stats:
                 with torch.no_grad():
                     m = self.momentum
@@ -241,6 +259,13 @@ def leaky_relu_01(x):
     return F.leaky_relu(x, negative_slope=0.1)
 
 
+def mish(x):
+    """Mish activation, x * tanh(softplus(x)) (the reference keeps it as an
+    optional experiment, `spnet/models.py:74-98`; no model of the port
+    uses it, as in JAX)."""
+    return x * torch.tanh(F.softplus(x))
+
+
 #: Activations a layer may end with, by name ("" = none).  ReLU6 is the
 #: JAX MobileNet's `min(relu(x), 6)`; "leaky" is DarkNet's LeakyReLU(0.1).
 ACTIVATIONS = {"": lambda x: x, "relu": F.relu, "relu6": F.relu6,
@@ -342,8 +367,12 @@ class Dropout(nn.Module):
             raise ValueError("train-mode dropout needs a torch.Generator on "
                              f"{x.device}")
         keep_prob = 1.0 - self.rate
-        keep = torch.rand(x.shape, generator=generator,
-                          device=x.device) < keep_prob
+        # inside a group the mask of the global batch is drawn and this
+        # rank keeps its rows, so a run does not depend on the world size
+        n_ranks = mesh.world_size()
+        shape = (x.shape[0] * n_ranks,) + tuple(x.shape[1:])
+        keep = mesh.local_rows(torch.rand(shape, generator=generator,
+                                          device=x.device)) < keep_prob
         return torch.where(keep, x / keep_prob, torch.zeros_like(x))
 
 

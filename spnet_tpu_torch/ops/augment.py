@@ -11,7 +11,11 @@ tensor code on the images' device:
     the replacement for the reference's offline 42x dataset inflation.
 
 Randomness comes from an explicit `torch.Generator` on that device, so the
-draws differ from `jax.random`'s but follow the same distributions.
+draws differ from `jax.random`'s but follow the same distributions.  Inside
+a process group (`parallel/mesh.py`) the images are this rank's rows of the
+global batch: every draw is made for the global batch, from the generator
+every rank seeds alike, and the rank keeps its own rows, so each image is
+augmented as the one-process run augments it and no rank warps another's.
 Images are (B, H, W, C), already normalized to [-1, 1]; raw rows are
 [cx, cy, a, b, angle_deg, rings] in native image coordinates.
 """
@@ -22,6 +26,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from spnet_tpu_torch.parallel import mesh
+
 CUTOUT_MAX_REGIONS = 6
 CUTOUT_MIN = 11
 CUTOUT_MAX = 75
@@ -29,12 +35,19 @@ SALT_AMOUNT = 0.004
 SALT_VS_PEPPER = 0.2
 
 
+def _global(size) -> tuple:
+    """The global batch's draw shape for this rank's `size` (b, ...)."""
+    return (size[0] * mesh.world_size(),) + tuple(size[1:])
+
+
 def _randint(low, high, size, generator, device):
-    return torch.randint(low, high, size, generator=generator, device=device)
+    return mesh.local_rows(torch.randint(low, high, _global(size),
+                                         generator=generator, device=device))
 
 
 def _rand(size, generator, device):
-    return torch.rand(size, generator=generator, device=device)
+    return mesh.local_rows(torch.rand(_global(size), generator=generator,
+                                      device=device))
 
 
 def cutout(images, generator: torch.Generator,

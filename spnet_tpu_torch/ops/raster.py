@@ -102,3 +102,29 @@ def pair_iou(recs_p, recs_t, h: int = ORIG_IMG_HEIGHT,
                       num_i.float() / torch.clamp_min(num_u, 1).float(),
                       -1.0)
     return torch.where(recs_t[:, 6] > 0.99, -1.0, iou)
+
+
+def ellipse_mask(cx, cy, a, b, theta, h: int = ORIG_IMG_HEIGHT,
+                 w: int = ORIG_IMG_WIDTH, device=None):
+    """Full boolean (h, w) mask of one rotated ellipse: pixel (y, x) is in
+    when ((u / a')^2 + (v / b')^2) <= 1 for its rotated offsets (u, v) and
+    the semi-axes dilated by BOUNDARY_PAD, all in float32 as in JAX (the
+    row-interval counting above gives the same pixels without the image).
+    theta in radians; `device` defaults to cx's when it is a tensor, else
+    the CPU."""
+    if device is None:
+        device = cx.device if isinstance(cx, torch.Tensor) else "cpu"
+
+    def f32(v):
+        return torch.as_tensor(v, dtype=torch.float32, device=device)
+
+    cx, cy, a, b, theta = map(f32, (cx, cy, a, b, theta))
+    ys = torch.arange(h, dtype=torch.float32, device=device)[:, None]
+    xs = torch.arange(w, dtype=torch.float32, device=device)[None, :]
+    a = torch.clamp_min(a, 0.0) + BOUNDARY_PAD
+    b = torch.clamp_min(b, 0.0) + BOUNDARY_PAD
+    c, s = torch.cos(theta), torch.sin(theta)
+    dx, dy = xs - cx, ys - cy
+    u = dx * c + dy * s
+    v = -dx * s + dy * c
+    return (u / a) ** 2 + (v / b) ** 2 <= 1.0

@@ -33,12 +33,26 @@ feeds (`device_data`):
     checkpoint every `save_every` epochs and at the last one, with
     auto-resume from it.
 
-Multi-device training is not ported yet.  JAX's val-monitoring slice and
-`chunked_device_put` are TPU workarounds the port does not carry.
+Data-parallel training (JAX's multi-device and multi-process branches):
+when a `torch.distributed` group runs (`parallel/multihost.py::
+maybe_initialize`), each rank passes its own file shard, the training set
+is the union of the shards in rank order (`host_to_global`), resident on
+every rank's device, so the steps, the schedule and a resume count global
+steps; every rank walks the same seeded epoch order, gathers, augments
+and trains on its own rows of each global batch inside
+`DistributedDataParallel` (`train/steps.py`), with the augmentation and
+dropout draws and the BatchNorm statistics of the global batch.  Each
+rank scores its own val shard, as in JAX.  Rank 0 alone writes
+`losses.dat`, the plots, TensorBoard and the checkpoint; every rank
+restores from it.
+
+JAX's val-monitoring slice and `chunked_device_put` are TPU workarounds the
+port does not carry.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import sys
 import time
@@ -56,6 +70,8 @@ from spnet_tpu_torch.grid import denormalize
 from spnet_tpu_torch.io.logs import LossLog, save_progress_plot
 from spnet_tpu_torch.io.tb import TBWriter
 from spnet_tpu_torch.io.render import show_pred_ellipses
+from spnet_tpu_torch.parallel import mesh
+from spnet_tpu_torch.parallel.multihost import host_to_global
 from spnet_tpu_torch.train.chunked import ChunkStreamer, Stager, \
     plan_chunks, run_chunked_epoch
 from spnet_tpu_torch.train.schedule import onecycle_schedule
@@ -190,26 +206,52 @@ def _pick_feed(device_data, train_ds: Dataset, val_ds: Dataset,
     return device_data
 
 
+def _global_train_set(ds: Dataset) -> Dataset:
+    """The union of the ranks' training shards in rank order, on every
+    rank (the global set JAX assembles with `host_to_global`)."""
+    names = [None] * mesh.world_size()
+    torch.distributed.all_gather_object(names, ds.file_list)
+    return dataclasses.replace(
+        ds, x=host_to_global(ds.x), y=host_to_global(ds.y),
+        file_list=[f for part in names for f in part],
+        rows=None if ds.rows is None else host_to_global(ds.rows),
+        row_mask=None if ds.row_mask is None else host_to_global(
+            ds.row_mask))
+
+
 def train_network(cfg: ExperimentConfig, train_ds: Dataset,
                   val_ds: Dataset, device: str | torch.device = "cuda",
                   log_dir: str = "./logs/run", ckpt_dir: str | None = None,
                   render_overlays: bool = True,
                   device_data: bool | str | None = None,
                   chunk_budget: int | None = None, verbose: int = 1):
-    """Full training run on one device; returns (state, history).
+    """Full training run on one device, or data-parallel on this rank's
+    when a process group runs; returns (state, history).
 
     device_data: None picks the resident feed when the set fits, else the
     chunked one; True (resident), "chunked", False (host-fed).
     chunk_budget: the bytes the chunked feed's chunks may take on the
     device (`plan_chunks` sizes ~3 in flight); None = RESIDENT_FRACTION of
-    the card less the val frames."""
+    the card less the val frames.  In a group of W > 1 ranks, train_ds and
+    val_ds are this rank's shards, the batch size is global (W must divide
+    it), the feed is the resident one, and a bare 'cuda' device is
+    `cuda:LOCAL_RANK` (`mesh.local_device`)."""
     tc, mc, grid = cfg.train, cfg.model, cfg.grid
-    device = torch.device(device)
+    device = mesh.local_device(device)
     geo = tc.geo_augment
     if geo and train_ds.rows is None:
         raise ValueError("geo_augment requires the dataset to carry raw "
                          "ellipse rows (Dataset.rows); build it with "
                          "build_dataset or synthetic_dataset")
+    n_ranks, main = mesh.world_size(), mesh.rank() == 0
+    if n_ranks > 1:
+        if tc.batch_size % n_ranks:
+            raise ValueError(f"batch size {tc.batch_size} does not split "
+                             f"over {n_ranks} ranks")
+        train_ds = _global_train_set(train_ds)
+        # the global set is resident on every rank, as in JAX: chunks or
+        # host batches would need coordination between the ranks
+        device_data = True
     model = build_model(mc, num_outputs=grid.num_outputs, device=device,
                         generator=torch.Generator().manual_seed(tc.seed))
     n_train = train_ds.x.shape[0]
@@ -236,6 +278,7 @@ def train_network(cfg: ExperimentConfig, train_ds: Dataset,
             print(f"    pretrained backbone loaded from {mc.pretrained}")
     if ckpt_dir:
         state = restore_if_exists(ckpt_dir, state)
+    state = mesh.replicate_state(state)
 
     device_data = _pick_feed(device_data, train_ds, val_ds, device, geo)
     arrays = _train_arrays(train_ds, geo)
@@ -273,8 +316,8 @@ def train_network(cfg: ExperimentConfig, train_ds: Dataset,
         indexed="epoch" if device_data else False, geo_augment=geo,
         grid=grid)
     predict_fn = make_predict_step(model)
-    log = LossLog(log_dir)
-    tb = TBWriter(f"{log_dir}/tb") if tc.use_tb else None
+    log = LossLog(log_dir) if main else None
+    tb = TBWriter(f"{log_dir}/tb") if tc.use_tb and main else None
     history = []
     frozen_left = tc.frozen_epochs if tc.freeze_fac > 0 else 0
 
@@ -343,13 +386,6 @@ def train_network(cfg: ExperimentConfig, train_ds: Dataset,
         yv = denormalize(val_ds.y, grid)
         yp = denormalize(y_pred, grid)
         st = calc_errors(yp, yv)
-        log.append(epoch, ep_loss, comps_np, st.class_acc, extra={
-            "ring_acc": st.ring_acc,
-            "mean_pix_err": st.mean_pix_err,
-            "img_per_sec": img_per_sec,
-            "val_fps": fps,
-            "lr": state.schedule(state.step),
-        })
         history.append({
             "epoch": epoch,
             "train_loss": ep_loss,
@@ -366,30 +402,44 @@ def train_network(cfg: ExperimentConfig, train_ds: Dataset,
                   f"ring_acc {st.ring_acc:.2f}%  "
                   f"class_acc {st.class_acc:.2f}%  "
                   f"pix_err {st.mean_pix_err:.2f}  "
-                  f"{img_per_sec:.1f} img/s  val_fps {fps:.0f}")
-        try:  # plots are diagnostics: a missing matplotlib or PIL skips them
-            save_progress_plot(log_dir, log, yv, yp,
-                               (grid.img_width, grid.img_height))
-            if render_overlays:
-                show_pred_ellipses(yv, yp, val_ds.file_list, num_draw=40,
-                                   log_dir=log_dir)
-        except Exception as e:  # noqa: BLE001 (the JAX loop does the same)
-            print(f"    (plot/render skipped: {e!r})")
-        if tb is not None:
-            _tb_epoch(tb, log_dir, epoch, (
-                ("loss/train", ep_loss),
-                ("loss/val", comps_np["total"]),
-                ("metrics/ring_acc", st.ring_acc),
-                ("metrics/class_acc", st.class_acc),
-                ("metrics/mean_pix_err", st.mean_pix_err),
-                ("perf/img_per_sec", img_per_sec),
-                ("lr", state.schedule(state.step))))
+                  f"{img_per_sec:.1f} img/s  val_fps {fps:.0f}"
+                  + (f"  [rank {mesh.rank()}/{n_ranks}, its val shard]"
+                     if n_ranks > 1 else ""))
+        if main:  # rank 0 alone writes (the state is replicated)
+            log.append(epoch, ep_loss, comps_np, st.class_acc, extra={
+                "ring_acc": st.ring_acc,
+                "mean_pix_err": st.mean_pix_err,
+                "img_per_sec": img_per_sec,
+                "val_fps": fps,
+                "lr": state.schedule(state.step),
+            })
+            # plots are diagnostics: a missing matplotlib or PIL skips them
+            try:
+                save_progress_plot(log_dir, log, yv, yp,
+                                   (grid.img_width, grid.img_height))
+                if render_overlays:
+                    show_pred_ellipses(yv, yp, val_ds.file_list,
+                                       num_draw=40, log_dir=log_dir)
+            except Exception as e:  # noqa: BLE001 (as the JAX loop does)
+                print(f"    (plot/render skipped: {e!r})")
+            if tb is not None:
+                _tb_epoch(tb, log_dir, epoch, (
+                    ("loss/train", ep_loss),
+                    ("loss/val", comps_np["total"]),
+                    ("metrics/ring_acc", st.ring_acc),
+                    ("metrics/class_acc", st.class_acc),
+                    ("metrics/mean_pix_err", st.mean_pix_err),
+                    ("perf/img_per_sec", img_per_sec),
+                    ("lr", state.schedule(state.step))))
 
         if ckpt_dir and ((epoch + 1) % tc.save_every == 0
                          or epoch == tc.epochs - 1):
-            save_train_state(ckpt_dir, state, cfg)
-            if verbose:
-                print(f"    checkpoint saved to {ckpt_dir}")
+            if main:
+                save_train_state(ckpt_dir, state, cfg)
+                if verbose:
+                    print(f"    checkpoint saved to {ckpt_dir}")
+            if n_ranks > 1:  # no rank reads it before it is whole
+                torch.distributed.barrier()
 
     if tb is not None:  # each record was flushed as it was written
         tb.close()

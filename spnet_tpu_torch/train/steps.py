@@ -11,7 +11,8 @@ K2/K3, which on the 'ss' head also apply its selective sigmoid K4) plus the
 L2 penalty, the backward pass, and one Adam update under the 1-cycle
 schedule.  PyTorch runs eagerly, so where JAX
 compiles a whole epoch into one program, the port runs one step per
-minibatch from a Python loop (`train/loop.py`).
+minibatch from a Python loop (`train/loop.py`).  In a process group the
+step is data-parallel (`DistributedDataParallel`, `make_train_step`).
 
 L2 regularization: an explicit penalty over the conv and dense kernels in
 scope, added to the loss, as in the JAX package.
@@ -20,7 +21,9 @@ scope, added to the loss, as in the JAX package.
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 from torch import nn
+from torch.nn.parallel import DistributedDataParallel
 
 from spnet_tpu_torch.models.layers import Kernel
 from spnet_tpu_torch.ops import augment as aug_ops
@@ -28,6 +31,7 @@ from spnet_tpu_torch.ops.grid_encode import encode_batch_device
 from spnet_tpu_torch.ops.losses import loss_components, spnet_loss, \
     spnet_loss_fused
 from spnet_tpu_torch.config import GridSpec, LossWeights
+from spnet_tpu_torch.parallel import mesh
 from spnet_tpu_torch.utils.profiling import annotate
 
 
@@ -89,15 +93,19 @@ def forward_loss(model: nn.Module, x, y, generator: torch.Generator | None,
     applies the selective sigmoid in its own pass: the model leaves it out
     and the loss takes the pre-activation (one launch forward and one
     backward in place of four).  fused=False keeps the model's
-    `SelectiveSigmoid` and the plain loss."""
-    ss = fused and model.selective_sigmoid and not model.plain_kernels
+    `SelectiveSigmoid` and the plain loss.  `model` may be a
+    `DistributedDataParallel` wrapper: it runs the forward, and the L2 term
+    and the head's settings come from the module inside."""
+    core = model.module if isinstance(model, DistributedDataParallel) \
+        else model
+    ss = fused and core.selective_sigmoid and not core.plain_kernels
     out = model(x, dropout_generator=generator, selective_sigmoid=not ss)
     data_loss = (spnet_loss_fused(y, out, loss_weights, loss_type,
                                   selective_sigmoid=ss) if fused
                  else spnet_loss(y, out, loss_weights, loss_type))
     loss = data_loss
     if l2_reg and l2_scope != "none":
-        loss = loss + l2_reg * kernel_l2(model, l2_scope)
+        loss = loss + l2_reg * kernel_l2(core, l2_scope)
     return loss, data_loss
 
 
@@ -129,7 +137,16 @@ def make_train_step(model: nn.Module,
     and the native-coordinate rows (flip / rotate / translate, fill -1),
     `y = encode_batch_device(rows, mask, grid)` (the stored y_all is not
     read), then cutout / salt & pepper, the model and the loss.  Host-fed
-    and geo: train_step(state, x, y, rows, mask, generator)."""
+    and geo: train_step(state, x, y, rows, mask, generator).
+
+    Made while a process group runs (`parallel/mesh.py`), the step is
+    data-parallel: idx (or the host-fed batch) is the global batch, and
+    every rank gathers, augments and trains on its own rows of it
+    (`mesh.local_rows`) inside `DistributedDataParallel`.  The
+    augmentation and dropout draws are the global batch's, from the
+    generator every rank seeds alike, so a run does not depend on the world
+    size; the BatchNorm statistics are the global batch's, and the logged
+    losses are averaged over the ranks."""
     if indexed not in ("epoch", False):
         raise ValueError(f"indexed must be 'epoch' or False, got "
                          f"{indexed!r}")
@@ -138,9 +155,20 @@ def make_train_step(model: nn.Module,
                          f"{l2_scope!r}")
     if geo_augment and grid is None:
         raise ValueError("geo_augment=True requires the GridSpec")
+    net = model
+    if mesh.active():
+        # the BatchNorm running statistics are equal on every rank (their
+        # all-reduced moments), so a per-forward buffer broadcast would
+        # only add traffic
+        dev = next(model.parameters()).device
+        net = DistributedDataParallel(
+            model, device_ids=[dev] if dev.type == "cuda" else None,
+            broadcast_buffers=False)
+    n_ranks = mesh.world_size()
 
     def step(state, x, y, generator, rows=None, mask=None):
-        """One update from the minibatch (x, y[, rows, mask])."""
+        """One update from this rank's rows (x, y[, rows, mask]) of the
+        minibatch."""
         m = state.model
         m.train()
         x = _prep_x(x)
@@ -153,35 +181,57 @@ def make_train_step(model: nn.Module,
                 y = encode_batch_device(rows, mask, grid)
         if augment:
             x = aug_ops.augment_on_the_fly(x, generator, blur_prob=blur_prob)
+        # a rank's loss is the mean over its b/W x M slots; DDP averages
+        # the gradients over the ranks, and the average of equal-sized
+        # means is the global mean, while the L2 term, the same on every
+        # rank, averages to itself.  DDP reduces what `backward`
+        # accumulates into `.grad`.
+        loss, data_loss = forward_loss(net, x, y, generator, loss_weights,
+                                       loss_type, l2_reg, l2_scope)
         params = list(m.parameters())
-        loss, data_loss = forward_loss(
-            m, x, y, generator, loss_weights, loss_type, l2_reg, l2_scope)
-        grads = torch.autograd.grad(loss, params)
+        m.zero_grad(set_to_none=True)
+        loss.backward()
+        grads = [p.grad for p in params]
+        m.zero_grad(set_to_none=True)
         lr = state.schedule(state.step)
         state.opt_state = state.optimizer.update(params, grads,
                                                  state.opt_state)
         state.step += 1
-        return state, {"loss": loss.detach(), "data_loss": data_loss.detach(),
-                       "lr": lr}
+        loss, data_loss = loss.detach(), data_loss.detach()
+        if n_ranks > 1:  # the logged losses: the global batch's
+            logged = torch.stack([loss, data_loss])
+            dist.all_reduce(logged)
+            loss, data_loss = logged / n_ranks
+        return state, {"loss": loss, "data_loss": data_loss, "lr": lr}
+
+    def local(*ts):
+        return [None if t is None else mesh.local_rows(t) for t in ts]
 
     if indexed is False:
         if geo_augment:
             def train_step_geo(state, x, y, rows, mask, generator):
+                x, y, rows, mask = local(x, y, rows, mask)
                 return step(state, x, y, generator, rows, mask)
 
             return train_step_geo
-        return step
+
+        def train_step_fed(state, x, y, generator):
+            return step(state, *local(x, y), generator)
+
+        return train_step_fed
 
     if geo_augment:
         def train_step_geo(state, x_all, y_all, rows_all, mask_all, idx,
                            generator):
             # the stored labels are not read: the step encodes its own
+            (idx,) = local(idx)
             return step(state, x_all[idx], None, generator, rows_all[idx],
                         mask_all[idx])
 
         return train_step_geo
 
     def train_step(state, x_all, y_all, idx, generator):
+        (idx,) = local(idx)
         return step(state, x_all[idx], y_all[idx], generator)
 
     return train_step
