@@ -10,9 +10,9 @@ check raises and the run exits non-zero:
   2. build   - compiles the CUDA kernels from `spnet_tpu_torch/csrc`;
   3. kernel  - the fused separable-conv kernel against its plain PyTorch
                version at the 10 Xception-331 shapes (b=16 with the input
-               and output ReLU as the model has them and flipped; b=256,
-               the train path's val-sweep batch, as the model has them) and
-               two ragged shapes, in float32 and bfloat16, with the median
+               and output ReLU as the model has them and flipped; b=64,
+               `bench_infer`'s batch, and b=256, the train path's val-sweep
+               batch, as the model has them) and two ragged shapes, in float32 and bfloat16, with the median
                time of each (CUDA events); for bf16 at b=16 and b=256 each
                shape's bound (bytes and operations from the shapes, which
                one binds), % of bound, and the time of the unfused library
@@ -183,7 +183,28 @@ check raises and the run exits non-zero:
                running statistics equal on both, launches per rank, the
                shared card's images/s (labelled, no claim), and one float32
                b=16 step: loss and head-kernel gradient against one process
-               (rel 1e-5).
+               (rel 1e-5);
+  17. bench  - the port's benchmarks as a user runs them:
+               `tools/bench.py::main` (Xception-331 bf16, b=128, the
+               synthetic set, a warm-up and a timed epoch of BENCH_STEPS
+               steps: its four keys, a finite positive rate, K2 = K3 =
+               steps), then `tools/bench_infer.py`'s two modes (pipelined
+               batches; the sweep captured once as a CUDA graph and
+               replayed) at b=64 and b=16 over 4096 seeded frames: frames/s
+               of each, the two outputs bitwise equal, K1 34 a batch (the
+               sweep's counted in the captured graph);
+  18. native - native resolution (`input_size=0`, uncut 512x384 frames):
+               (a) K1 against its plain version at the ten shapes of
+               Xception at 384x512 (`NATIVE_SHAPES`), b=16, 64 and 256,
+               float32 and bfloat16, with the path each takes (wgmma tiles
+               or the simple kernel) and, in bf16, its time, bound, % of
+               bound and the library pair; (b) Xception-384x512 bf16
+               served from a port checkpoint (256 frames at b=16: frames/s,
+               launches) and held, float32 and bf16, against its plain
+               version; (c) `train_network` at b=128 on 512 + 256 seeded
+               native frames, 2 epochs: finite losses, launches, the run's
+               peak of `max_memory_allocated`.  Each of 17 and 18 prints
+               its seconds.
 
 Every model path runs with all five launch counts (and the loss kernel's
 count of 'ss' launches) set to 0 just before it and checks them all just
@@ -192,7 +213,9 @@ after.  The line before the last is the kernels' JSON record (for K2-K4
 `host_us` and `floor_ms`; K2 adds `ss_fused_ms` and `ss_launches`;
 `feeds_launches`, `remat_launches`, `pretrained_launches` and
 `export_launches` are the counts of phases 11-14, `dp_launches` of K1-K3
-those of phase 16); the last line is
+those of phase 16, `bench_launches` and `native_launches` those of phases
+17 and 18; K1 adds its native b=16 batch's `native_ms`, `native_plain_ms`,
+`native_bound_ms` and `native_library_ms`); the last line is
 `{"ok": true, "device": {...}}`.  Exits
 non-zero without a result when no CUDA device is available.  Needs torch
 and numpy, no jax; phase 10 writes and reads PNG files with PIL.
@@ -245,11 +268,19 @@ XCEPTION_SHAPES = [
     (16, 5, 5, 1024, 1536, True, False, 1),
     (16, 5, 5, 1536, 2048, True, False, 1),
 ]
+# the same 34 separable convs at native resolution (`input_size=0`, uncut
+# 512x384 frames): odd widths and heights the 331 path never has
+NATIVE_HW = [(93, 125), (93, 125), (47, 63), (47, 63), (24, 32), (24, 32),
+             (12, 16), (12, 16), (6, 8), (6, 8)]
+NATIVE_SHAPES = [(16, h, w, *s[3:])
+                 for (h, w), s in zip(NATIVE_HW, XCEPTION_SHAPES)]
 RAGGED_SHAPES = [(2, 7, 5, 24, 40), (3, 9, 9, 33, 70)]
 SEPCONVS_PER_BATCH = sum(s[-1] for s in XCEPTION_SHAPES)  # 34
 # the val sweep's batch on the train path: max(b, min(256, val frames))
 # (`train/loop.py`), 256 for phase 6
 VAL_BATCH = 256
+# `tools/bench_infer.py`'s default batch (phase 17; checked in 3 and 18(a))
+INFER_BATCH = 64
 # (B, M) of the loss kernels: the train batch and its neighbours, and two
 # shapes that leave a ragged last block of 256 slots
 LOSS_SHAPES = [(16, 576), (128, 576), (256, 576), (3, 8 * 37), (5, 8 * 250)]
@@ -424,6 +455,8 @@ def phase_kernel(seed: int, smi: str) -> dict:
     for *shape, relu, relu_in, uses in XCEPTION_SHAPES:
         cases.append((tuple(shape), relu, relu_in, uses))
         cases.append((tuple(shape), not relu, not relu_in, 0))
+    cases += [((INFER_BATCH, *s[1:5]), s[5], s[6], 0)
+              for s in XCEPTION_SHAPES]
     cases += [((VAL_BATCH, *s[1:5]), s[5], s[6], s[7])
               for s in XCEPTION_SHAPES]
     cases += [(s, relu, relu_in, 0) for s in RAGGED_SHAPES
@@ -526,14 +559,15 @@ def _descriptor_ring(gen):
 
 
 def _seeded_dataset(n: int, size: int, grid, seed: int):
-    """n uint8 (size, size, 1) frames and their normalized grid labels,
-    from numpy only."""
+    """n uint8 (size, size, 1) frames (native 384 x 512 for size 0) and
+    their normalized grid labels, from numpy only."""
     from spnet_tpu_torch.grid import (
         batch_ellipses_to_grid, canonicalize_records, normalize,
     )
 
     rng = np.random.default_rng(seed)
-    x = rng.integers(0, 256, (n, size, size, 1), dtype=np.uint8)
+    hw = (size, size) if size else (grid.img_height, grid.img_width)
+    x = rng.integers(0, 256, (n, *hw, 1), dtype=np.uint8)
     recs = []
     for _ in range(n):
         k = int(rng.integers(1, 7))
@@ -2864,6 +2898,180 @@ def phase_dp(seed: int, smi: str) -> dict:
                 profile=profile, two=two)
 
 
+BENCH_STEPS = 16          # steps an epoch of phase 17's `bench` (160 there)
+INFER_FRAMES = 4096       # bench_infer's frames
+INFER_BATCHES = (INFER_BATCH, 16)  # and the reference's logged FPS batch
+
+
+def phase_bench(seed: int, smi: str) -> dict:
+    """Phase 17: the port's benchmarks as a user runs them, through
+    `tools/bench.py::main` (Xception-331 bf16, b=128, the synthetic set,
+    BENCH_STEPS steps an epoch) and `tools/bench_infer.py`'s two modes at
+    each of INFER_BATCHES over INFER_FRAMES seeded frames, with the launch
+    counts of each."""
+    from spnet_tpu_torch.config import ModelConfig
+    from spnet_tpu_torch.tools import bench, bench_infer
+    from spnet_tpu_torch.train.steps import make_predict_step
+
+    t0 = time.perf_counter()
+    _zero_counts()
+    out = bench.main(steps_per_epoch=BENCH_STEPS)
+    counts = _counts()
+    want = _want_counts(ModelConfig(), train_steps=2 * BENCH_STEPS)
+    print(f"[bench] bench.main(steps_per_epoch={BENCH_STEPS}) (warm-up + "
+          f"timed epoch): {json.dumps(out)}; launches {counts}  [{smi}]")
+    if tuple(out) != ("metric", "value", "unit", "vs_baseline") or not (
+            np.isfinite(out["value"]) and out["value"] > 0):
+        fail(f"bench: {out}")
+    if counts != want:
+        fail(f"bench: launches {counts} != {want}")
+    res = dict(train=out, train_counts=counts, infer={})
+
+    model, x, mc = bench_infer.setup(INFER_BATCHES[0], INFER_FRAMES)
+    predict = make_predict_step(model)
+    for b in INFER_BATCHES:
+        steps = INFER_FRAMES // b
+        _zero_counts()
+        y1, fps1 = bench_infer.pipelined(predict, x, b)
+        c1 = _counts()
+        _zero_counts()
+        y2, fps2 = bench_infer.captured_sweep(predict, x, b)
+        c2 = _counts()
+        # pipelined: the warm-up batch and every batch; the sweep: its
+        # eager warm-up batch and the graph's contents (captured once; the
+        # replays do not pass through the wrapper)
+        w1 = _want_counts(mc, predict_batches=-(-INFER_FRAMES // b) + 1)
+        w2 = _want_counts(mc, predict_batches=1 + steps)
+        same = torch.equal(y1[: steps * b], y2)
+        r = bench_infer.result(b, fps1, fps2, x.device, mc)
+        print(f"[bench] bench_infer b={b}, {INFER_FRAMES} frames: "
+              f"{json.dumps(r)}; outputs of the two modes bitwise equal: "
+              f"{same}; K1 launches pipelined {c1['sepconv_infer']}, sweep "
+              f"{c2['sepconv_infer']} (warm-up batch + the graph's "
+              f"{steps} x 34)  [{smi}]")
+        if c1 != w1 or c2 != w2:
+            fail(f"bench_infer b={b}: launches {c1} / {c2} != {w1} / {w2}")
+        if not (same and torch.isfinite(y1).all()):
+            fail(f"bench_infer b={b}: the two modes' outputs differ")
+        res["infer"][b] = dict(result=r, pipelined=c1["sepconv_infer"],
+                               sweep=c2["sepconv_infer"])
+    del model, predict, x
+    torch.cuda.empty_cache()
+    res["seconds"] = time.perf_counter() - t0
+    print(f"[bench] phase 17 took {res['seconds']:.1f} s")
+    return res
+
+
+NATIVE_TRAIN, NATIVE_VAL = 512, 256  # phase 18(c)'s native frames
+NATIVE_SERVE_FRAMES = 256            # phase 18(b)'s predict frames, b=16
+
+
+def _native_kernel(seed: int, smi: str) -> dict:
+    """Phase 18(a): K1 against its plain version at NATIVE_SHAPES, b=16,
+    INFER_BATCH and VAL_BATCH, float32 and bfloat16; the path each shape takes
+    (`wgmma_kernel` tiles or the simple kernel), and for bf16 its median
+    time, bound, % of bound and the library pair's time."""
+    from spnet_tpu_torch.ops._build import load_library
+    from spnet_tpu_torch.ops.sepconv import _wgmma_tiles, sepconv_infer, \
+        sepconv_infer_torch
+
+    lib = load_library()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    max_err, paths = 0.0, {}
+    sums = {b: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
+            for b in (16, INFER_BATCH, VAL_BATCH)}
+    for b in (16, INFER_BATCH, VAL_BATCH):
+        for _, h, w, c, f, relu, relu_in, uses in NATIVE_SHAPES:
+            for dtype, rtol in ((torch.float32, F32_RTOL),
+                                (torch.bfloat16, BF16_RTOL)):
+                args = _sepconv_inputs(b, h, w, c, f, dtype, gen)
+                kw = dict(relu=relu, relu_in=relu_in)
+                tm, tn, blocks = _wgmma_tiles(lib, *args)
+                path = (f"wgmma_kernel TM={tm} TN={tn} ({blocks} blocks)"
+                        if tm else "simple kernel")
+                out = sepconv_infer(*args, **kw)
+                ref = sepconv_infer_torch(*args, **kw)
+                err = (out.float() - ref.float()).abs().max().item()
+                rel = err / max(ref.float().abs().max().item(), 1e-30)
+                name = str(dtype).replace("torch.", "")
+                line = (f"[native] K1 {name:8s} B={b} {h}x{w} {c}->{f} "
+                        f"relu={relu:d} relu_in={relu_in:d}: {path}  "
+                        f"max_abs_err {err:.3e} (rel {rel:.2e}, tol {rtol})")
+                if dtype == torch.bfloat16:
+                    paths[(b, h, w, c, f)] = path
+                    t_k = cuda_median_ms(lambda: sepconv_infer(*args, **kw))
+                    t_p = cuda_median_ms(
+                        lambda: sepconv_infer_torch(*args, **kw))
+                    t_l = cuda_median_ms(_library_pair(*args[:3]))
+                    bound, kind = sepconv_bound(b, h, w, c, f)
+                    line += (f"  kernel {t_k:.4f} ms  plain {t_p:.4f} ms  "
+                             f"library pair {t_l:.4f} ms  bound "
+                             f"{bound:.4f} ms ({kind})  "
+                             f"{100 * bound / t_k:.1f}% of bound  x{uses}")
+                    for k, v in (("ms", t_k), ("plain_ms", t_p),
+                                 ("library_ms", t_l), ("bound_ms", bound)):
+                        sums[b][k] += uses * v
+                print(f"{line}  [{smi}]")
+                if not rel <= rtol:
+                    fail(f"native sepconv {dtype} {(b, h, w, c, f)}: "
+                         f"relative error {rel} > {rtol}")
+                max_err = max(max_err, err)
+                del args, out, ref
+    for b, acc in sums.items():
+        share = 100 * acc["bound_ms"] / acc["ms"]
+        print(f"[native] one bf16 batch of b={b} at 384x512 (34 sepconvs): "
+              f"kernel {acc['ms']:.4f} ms, plain {acc['plain_ms']:.4f} ms, "
+              f"library pair {acc['library_ms']:.4f} ms, bound "
+              f"{acc['bound_ms']:.4f} ms ({share:.1f}% of bound)  [{smi}]")
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=max_err, paths=paths, sums=sums)
+
+
+def phase_native(seed: int, smi: str) -> dict:
+    """Phase 18: native resolution (`input_size=0`, uncut 512x384
+    frames), Xception bf16 with f32 params: (a) K1 at its ten shapes;
+    (b) the model served from a port checkpoint (NATIVE_SERVE_FRAMES at
+    b=16: frames/s, 34 K1 launches a batch) and held, float32 and bf16,
+    against its plain version; (c) `train_network` at b=128 on
+    NATIVE_TRAIN + NATIVE_VAL seeded native frames for 2 epochs: finite
+    losses, launches, the run's peak memory."""
+    from spnet_tpu_torch.config import ExperimentConfig, ModelConfig, \
+        TrainConfig
+
+    t0 = time.perf_counter()
+    kern = _native_kernel(seed, smi)
+    cfg = ExperimentConfig(model=ModelConfig(input_size=0))
+    model, x, _, _, fps, serve_counts = _serve(
+        cfg, seed, smi, "native", n_frames=NATIVE_SERVE_FRAMES)
+    for dtype in ("float32", "bfloat16"):
+        _kernels_vs_plain(cfg.model, model.state_dict(), x[:16], "native",
+                          dtype)
+    del model
+    torch.cuda.empty_cache()
+    cfg = ExperimentConfig(model=ModelConfig(input_size=0),
+                           train=TrainConfig(batch_size=TRAIN_BATCH,
+                                             epochs=2, save_every=1,
+                                             seed=seed))
+    train_ds, val_ds = _seeded_split((NATIVE_TRAIN, NATIVE_VAL), 0,
+                                     cfg.grid, seed)
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as tmp:
+        state, hist, train_counts = _train_run(cfg, train_ds, val_ds, tmp,
+                                               smi, tag="native")
+        del state
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t0
+    print(f"[native] train b={TRAIN_BATCH} at 384x512: peak "
+          f"max_memory_allocated {peak:.2f} GiB over the run (train steps, "
+          f"the b={VAL_BATCH} val sweeps, {NATIVE_TRAIN + NATIVE_VAL} "
+          f"resident frames); predict {fps:.1f} frames/s at b=16; phase 18 "
+          f"took {seconds:.1f} s  [{smi}]")
+    return dict(kern=kern, predict_fps=fps, serve_counts=serve_counts,
+                train_counts=train_counts, peak_gib=peak,
+                img_per_sec=hist[-1]["img_per_sec"], seconds=seconds)
+
+
 def _late_launches(name: str, feeds: dict, remat: dict, pre: dict) -> dict:
     """A loss kernel's launches on the paths of phases 11, 12 and 14."""
     return dict(feeds_launches={f: feeds[f]["counts"][name] for f in FEEDS},
@@ -2911,6 +3119,8 @@ def main(argv=None):
     prep = phase_prep(args.seed, smi)
     dp = phase_dp(args.seed, smi)
     print(f"[done] phases 15-16 took {time.perf_counter() - t2:.1f} s")
+    bench = phase_bench(args.seed, smi)
+    native = phase_native(args.seed, smi)
     print(f"[done] {time.perf_counter() - t0:.1f} s after the device phase; "
           f"train {train['img_per_sec']:.1f} images/s at b={TRAIN_BATCH}; "
           f"zoo train images/s "
@@ -2920,7 +3130,27 @@ def main(argv=None):
           f"{syn['img_per_sec'][1]:.1f} images/s; augment "
           f"{prep['files_per_s']:.3f} files/s; 1-rank group / no group "
           f"train images/s {[round(v, 1) for v in dp['rates']['group']]} / "
-          f"{[round(v, 1) for v in dp['rates']['none']]}  [{smi}]")
+          f"{[round(v, 1) for v in dp['rates']['none']]}; bench "
+          f"{bench['train']['value']} images/s, bench_infer "
+          f"{ {b: r['result']['value'] for b, r in bench['infer'].items()} }"
+          f" frames/s; native predict {native['predict_fps']:.1f} frames/s, "
+          f"train {native['img_per_sec']:.1f} images/s, peak "
+          f"{native['peak_gib']:.2f} GiB  [{smi}]")
+
+    def bench_launches(name):
+        # phase 17: bench.main's run, and bench_infer's modes per batch
+        # (the sweep's: its warm-up batch and the captured graph's contents)
+        res = {"bench": bench["train_counts"][name]}
+        if name == "sepconv_infer":
+            res["bench_infer"] = {
+                b: {"pipelined": r["pipelined"], "sweep": r["sweep"]}
+                for b, r in bench["infer"].items()}
+        return res
+
+    def native_launches(name):
+        # phase 18: the native serve (b=16) and the native 2-epoch run
+        return {"serve": native["serve_counts"][name],
+                "train": native["train_counts"][name]}
 
     def dp_launches(name):
         # phase 16: the 1-rank NCCL group's 2-epoch run, and each gloo
@@ -2978,6 +3208,15 @@ def main(argv=None):
         "export_ss_launches": export["export ss"]["counts"][
             "sepconv_infer"],
         "dp_launches": dp_launches("sepconv_infer"),
+        # phases 17 and 18
+        "bench_launches": bench_launches("sepconv_infer"),
+        "native_launches": native_launches("sepconv_infer"),
+        "native_max_abs_err": native["kern"]["max_abs_err"],
+        # one bf16 batch of 34 at 384x512, b=16: summed median times
+        "native_ms": native["kern"]["sums"][16]["ms"],
+        "native_plain_ms": native["kern"]["sums"][16]["plain_ms"],
+        "native_bound_ms": native["kern"]["sums"][16]["bound_ms"],
+        "native_library_ms": native["kern"]["sums"][16]["library_ms"],
     },
         # the loss alone; the train step's forward also writes the
         # gradient (fused_ms, fused_bound_ms)
@@ -2998,6 +3237,8 @@ def main(argv=None):
               geo_launches=syn["train_counts"]["spnet_loss_fwd"],
               cli_trace_launches=syn["cli"]["ours"].get("loss_kernel", 0),
               dp_launches=dp_launches("spnet_loss_fwd"),
+              bench_launches=bench_launches("spnet_loss_fwd"),
+              native_launches=native_launches("spnet_loss_fwd"),
               **_late_launches("spnet_loss_fwd", feeds, remat, pre)),
         # g * dloss/dy_pred from y_true, y_pred and g; the train step's
         # backward scales the kept gradient (scale_ms, scale_bound_ms)
@@ -3011,6 +3252,8 @@ def main(argv=None):
               cli_trace_launches=syn["cli"]["ours"].get(
                   "grad_scale_kernel", 0),
               dp_launches=dp_launches("spnet_loss_bwd"),
+              bench_launches=bench_launches("spnet_loss_bwd"),
+              native_launches=native_launches("spnet_loss_bwd"),
               **_late_launches("spnet_loss_bwd", feeds, remat, pre)),
         small("selective_sigmoid_fwd", k4_src, k4_at,
               heads["ss"]["predict_counts"]["selective_sigmoid_fwd"],

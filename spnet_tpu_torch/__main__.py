@@ -1,6 +1,6 @@
 """Unified CLI: `python -m spnet_tpu_torch <command> [args...]`.
 
-Commands (the JAX package's, but for `bench`, the JAX benchmark's):
+Commands (the JAX package's):
 
   train            train, then evaluate            (train_spnet.py)
   evaluate         score on a labeled dataset      (evaluate_spnet.py)
@@ -12,6 +12,7 @@ Commands (the JAX package's, but for `bench`, the JAX benchmark's):
   parse-zooniverse crowd CSV -> per-image CSVs     (parse_zooniverse_csv.py)
   gen-bboxes       ellipse -> bounding-box CSV     (gen_bboxes_csv.py)
   ellipse-editor   Tk annotation editor            (ellipse_editor.py)
+  bench            one-card training benchmark     (—)
 
 train, evaluate, predict and export take a port checkpoint directory
 (`-w`, see `io/checkpoint.py`; a JAX checkpoint converts with
@@ -20,6 +21,9 @@ train, evaluate, predict, gen-fake-espi, export, setup-data and augment
 take `--device` (default `cuda`).  Data-parallel training:
 `torchrun --nproc_per_node=N -m spnet_tpu_torch train ...` (or the
 SPNET_COORDINATOR / SPNET_NUM_PROCESSES / SPNET_PROCESS_ID variables).
+`bench` (`tools/bench.py`, the port's counterpart of the JAX `bench.py`)
+takes no arguments, runs on the card and prints one JSON line; its
+inference companion is `python -m spnet_tpu_torch.tools.bench_infer`.
 """
 
 from __future__ import annotations
@@ -46,6 +50,13 @@ def main() -> None:
         print(__doc__)
         raise SystemExit(0)
     cmd = sys.argv[1]
+    if cmd == "bench":
+        import json
+
+        from spnet_tpu_torch.tools import bench
+
+        print(json.dumps(bench.main()))
+        return
     if cmd not in _COMMANDS:
         print(f"unknown command {cmd!r}\n")
         print(__doc__)

@@ -147,6 +147,15 @@ def precision_from_ious(
     return prec, tp, fp, fn
 
 
+def precision(
+    Yp: np.ndarray, Yt: np.ndarray, thresh: float = 0.5,
+    grid: GridSpec | None = None,
+) -> tuple[float, int, int, int]:
+    """One-threshold precision (reference `diagnostics.py:125-149`)."""
+    ious, fn_mask = slot_ious(Yp, Yt, grid)
+    return precision_from_ious(ious, fn_mask, thresh)
+
+
 def calc_map(
     Yp: np.ndarray,
     Yt: np.ndarray,

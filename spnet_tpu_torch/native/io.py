@@ -3,11 +3,20 @@
 Builds libspnet_io.so on first use (make, cached).  See
 `spnet_tpu_torch/data/loader.py` for the dispatch layer that falls back to PIL
 when the toolchain is unavailable.
+
+Several processes may reach a fresh checkout at once (parallel test
+workers, data-parallel ranks).  One of them builds, holding an exclusive
+`flock` on `.build.lock` beside the source; it compiles into a temporary
+name and renames the result onto `libspnet_io.so`, so a process never
+finds a partly written library: it finds none (and waits for the lock) or
+a whole one.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import os
 import subprocess
 
@@ -19,23 +28,47 @@ _lib = None
 _build_failed = False
 
 
+def _stale() -> bool:
+    """Whether the library is missing or older than its source."""
+    src = os.path.join(_DIR, "spnet_io.cpp")
+    return not os.path.exists(_LIB_PATH) or (
+        os.path.getmtime(_LIB_PATH) < os.path.getmtime(src))
+
+
+@contextlib.contextmanager
+def _build_lock():
+    """An exclusive flock on `.build.lock` in the source directory."""
+    with open(os.path.join(_DIR, ".build.lock"), "a") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
+def _build() -> None:
+    """Compile into a temporary name, then rename it onto the library."""
+    tmp = f".libspnet_io.{os.getpid()}.so.tmp"
+    try:
+        subprocess.run(["make", "-s", f"LIB={tmp}", tmp], cwd=_DIR,
+                       check=True, capture_output=True)
+        os.replace(os.path.join(_DIR, tmp), _LIB_PATH)
+    finally:
+        with contextlib.suppress(FileNotFoundError):
+            os.remove(os.path.join(_DIR, tmp))
+
+
 def _ensure_built() -> bool:
     global _lib, _build_failed
     if _lib is not None:
         return True
     if _build_failed:
         return False
-    src = os.path.join(_DIR, "spnet_io.cpp")
-    if not os.path.exists(_LIB_PATH) or (
-        os.path.getmtime(_LIB_PATH) < os.path.getmtime(src)
-    ):
+    if _stale():
         try:
-            subprocess.run(
-                ["make", "-s", "libspnet_io.so"],
-                cwd=_DIR,
-                check=True,
-                capture_output=True,
-            )
+            with _build_lock():
+                if _stale():  # another process may have built it meanwhile
+                    _build()
         except Exception as e:
             print("[spnet_tpu_torch.native] build failed, falling back to "
                   f"PIL: {e}")

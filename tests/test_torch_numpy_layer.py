@@ -8,6 +8,10 @@ prediction CSV."""
 
 import dataclasses
 import os
+import shutil
+import subprocess
+import sys
+import time
 
 import numpy as np
 import pytest
@@ -125,6 +129,25 @@ def pairs_dir(tmp_path_factory):
     return str(d)
 
 
+#: seconds to wait for another process's first build of the JAX package's
+#: native library
+JAX_NATIVE_WAIT_S = 60.0
+
+
+def _wait_for_jax_native(jnative, monkeypatch):
+    """The JAX package's decoder writes its library in place, so a test
+    worker that loads it while another worker's first build is still
+    writing fails and remembers the failure (that module stays as it is;
+    the port's copy builds under a lock into a temporary name).  Forget a
+    failed load and try again until the library loads or
+    JAX_NATIVE_WAIT_S have passed."""
+    deadline = time.monotonic() + JAX_NATIVE_WAIT_S
+    while not jnative.available() and time.monotonic() < deadline:
+        time.sleep(1.0)
+        monkeypatch.setattr(jnative, "_build_failed", False)
+        monkeypatch.setattr(jnative, "_lib", None)
+
+
 @pytest.mark.parametrize("uint8", [True, False])
 @pytest.mark.parametrize("path", ["native", "pil"])
 def test_build_dataset_equal(pairs_dir, path, uint8, monkeypatch):
@@ -136,6 +159,7 @@ def test_build_dataset_equal(pairs_dir, path, uint8, monkeypatch):
         from spnet_tpu.native import io as jnative
         from spnet_tpu_torch.native import io as tnative
 
+        _wait_for_jax_native(jnative, monkeypatch)
         assert jnative.available() and tnative.available()
     else:
         monkeypatch.setattr(jloader, "native_build_x", lambda *a, **k: None)
@@ -160,6 +184,66 @@ def test_native_and_pil_paths_differ_only_by_rounding(pairs_dir):
     pil = np.stack([tdataset.load_image(f, 40) for f in files])
     assert native is not None and native.shape == pil.shape == (7, 40, 40, 1)
     np.testing.assert_allclose(native, pil, rtol=0, atol=0.02)
+
+
+#: processes that load a fresh copy of the port's decoder at once, started
+#: this many seconds apart
+RACE_PROCESSES, RACE_STAGGER_S = 9, 0.3
+#: a C++ compiler that writes its output's first 64 bytes, then the rest
+#: SLOW_CXX_GAP_S later: it widens the window in which a library written in
+#: place is partial (a few ms with g++)
+SLOW_CXX_GAP_S = 1.5
+SLOW_CXX = f"""#!{sys.executable}
+import os, subprocess, sys, time
+args = sys.argv[1:]
+out = args[args.index("-o") + 1]
+args[args.index("-o") + 1] = out + ".whole"
+subprocess.run(["g++", *args], check=True)
+with open(out + ".whole", "rb") as f:
+    data = f.read()
+os.remove(out + ".whole")
+with open(out, "wb") as f:
+    f.write(data[:64])
+    f.flush()
+    time.sleep({SLOW_CXX_GAP_S})
+    f.write(data[64:])
+"""
+
+
+def test_native_build_is_safe_across_processes(tmp_path):
+    """RACE_PROCESSES processes, started RACE_STAGGER_S apart, each load a
+    copy of `spnet_tpu_torch/native/` that has no library yet, built by
+    SLOW_CXX: one builds (under the lock, into a temporary name renamed
+    onto the library), the others wait for the lock or find the whole
+    library, and every one loads it.  With the library written in place, a
+    process that starts while it is written loads a partial file ("file
+    too short") and falls back to PIL."""
+    src = os.path.join(os.path.dirname(tdataset.__file__), "..", "native")
+    native = tmp_path / "native"
+    native.mkdir()
+    for name in ("io.py", "Makefile", "spnet_io.cpp"):
+        shutil.copy(os.path.join(src, name), native / name)
+    cxx = tmp_path / "slow_cxx"
+    cxx.write_text(SLOW_CXX)
+    cxx.chmod(0o755)
+    child = ("import importlib.util, sys\n"
+             "spec = importlib.util.spec_from_file_location('nio', "
+             "sys.argv[1])\n"
+             "m = importlib.util.module_from_spec(spec)\n"
+             "spec.loader.exec_module(m)\n"
+             "print('available', m.available())\n")
+    procs = []
+    for _ in range(RACE_PROCESSES):
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", child, str(native / "io.py")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            env=dict(os.environ, CXX=str(cxx))))
+        time.sleep(RACE_STAGGER_S)
+    outs = [p.communicate(timeout=300)[0] for p in procs]
+    assert all(o.strip().endswith("available True") for o in outs), outs
+    assert "libspnet_io.so" in os.listdir(native)
+    assert not [f for f in os.listdir(native) if f.endswith((".tmp",
+                                                           ".whole"))]
 
 
 def test_loss_log_and_prediction_csv_byte_equal(pairs_dir, tmp_path):
