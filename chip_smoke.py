@@ -12,7 +12,9 @@ check raises and the run exits non-zero:
                version at the 10 Xception-331 shapes (b=16 with the input
                and output ReLU as the model has them and flipped; b=64,
                `bench_infer`'s batch, and b=256, the train path's val-sweep
-               batch, as the model has them) and two ragged shapes, in float32 and bfloat16, with the median
+               batch, as the model has them; b=512, `movie_predict`'s
+               batch, five timings each) and two ragged shapes, in float32
+               and bfloat16, with the median
                time of each (CUDA events); for bf16 at b=16 and b=256 each
                shape's bound (bytes and operations from the shapes, which
                one binds), % of bound, and the time of the unfused library
@@ -28,7 +30,7 @@ check raises and the run exits non-zero:
                and agreement of the whole model, float32 and bfloat16, between
                the kernels and their plain versions;
   5. loss    - the loss kernel (K2 and K3 in one pass) and the backward's
-               scale kernel against the plain PyTorch twin at B = 16, 128,
+               scale kernel against the plain PyTorch twin at B = 16, 32, 128,
                256 x M = 576 and two ragged shapes, 'same' and 'hybrid',
                float32: loss rel 1e-5 (`spnet_loss_fwd` and the fused
                forward), gradient max-abs error <= 1e-5 max|grad|
@@ -43,7 +45,7 @@ check raises and the run exits non-zero:
                time per eager call; and the launch floor (a one-element
                `add_` timed as the kernels are).  Then the loss kernel's
                'ss' variant (the selective sigmoid K4 in the same pass, on
-               the pre-activation z = 4 randn) at the same 5 shapes x 2
+               the pre-activation z = 4 randn) at the same 6 shapes x 2
                loss types: the loss bitwise equal to K4's forward then the
                loss kernel, and rel 1e-5 of the twins' composition; the
                gradient with respect to z within rel 1e-6 of max|grad| of
@@ -68,7 +70,7 @@ check raises and the run exits non-zero:
                the same step on the plain twin (loss rel 1e-6, head-weight
                gradient rel 1e-5);
   7. heads   - the selective-sigmoid kernel K4 (forward and backward)
-               against its plain twins at B = 16, 128, 256 x M = 576 and two
+               against its plain twins at B = 16, 32, 128, 256 x M = 576 and two
                ragged shapes (rel 1e-6; graph, event and host times as in
                phase 5); the 'ss' head
                (Xception-331 bf16 + K4) served from a port checkpoint whose
@@ -205,6 +207,16 @@ check raises and the run exits non-zero:
                native frames, 2 epochs: finite losses, launches, the run's
                peak of `max_memory_allocated`.  Each of 17 and 18 prints
                its seconds.
+  19. validation - the accuracy-validation tools through their `main`,
+               at a small depth and full width, in a temporary directory:
+               `tools.dataset_a 2 32 1e-4 1024 bfloat16 331 Xception` with
+               SPNET_NVAL=256 (its result line parses, the train loss falls
+               from epoch 1 to 2, the final evaluation holds mAP, ring_acc
+               and class_acc), then on its checkpoint `eval_breakdown`
+               (256 frames), `eval_tta` (4,992 frames: plain, each flipped
+               view, the flip ensemble) and `movie_predict` (512 native
+               .bmp frames at b=512); each tool's K1-K3 launches checked and
+               its memory readings printed.
 
 Every model path runs with all five launch counts (and the loss kernel's
 count of 'ss' launches) set to 0 just before it and checks them all just
@@ -215,7 +227,8 @@ after.  The line before the last is the kernels' JSON record (for K2-K4
 `export_launches` are the counts of phases 11-14, `dp_launches` of K1-K3
 those of phase 16, `bench_launches` and `native_launches` those of phases
 17 and 18; K1 adds its native b=16 batch's `native_ms`, `native_plain_ms`,
-`native_bound_ms` and `native_library_ms`); the last line is
+`native_bound_ms` and `native_library_ms`; K1-K3 add
+`validation_launches`, each tool's count in phase 19); the last line is
 `{"ok": true, "device": {...}}`.  Exits
 non-zero without a result when no CUDA device is available.  Needs torch
 and numpy, no jax; phase 10 writes and reads PNG files with PIL.
@@ -281,9 +294,12 @@ SEPCONVS_PER_BATCH = sum(s[-1] for s in XCEPTION_SHAPES)  # 34
 VAL_BATCH = 256
 # `tools/bench_infer.py`'s default batch (phase 17; checked in 3 and 18(a))
 INFER_BATCH = 64
+# `tools/movie_predict.py`'s batch (phase 19; checked in 3)
+MOVIE_BATCH = 512
 # (B, M) of the loss kernels: the train batch and its neighbours, and two
 # shapes that leave a ragged last block of 256 slots
-LOSS_SHAPES = [(16, 576), (128, 576), (256, 576), (3, 8 * 37), (5, 8 * 250)]
+LOSS_SHAPES = [(16, 576), (32, 576), (128, 576), (256, 576), (3, 8 * 37),
+               (5, 8 * 250)]
 SIGMOID_RTOL = 1e-6  # K4 vs twin: the same float32 formula, expf vs exp
 # the 'ss' variant's gradient x g vs K4's backward of the loss kernel's: g
 # multiplies after the sigmoid's factor in one, before it in the other
@@ -503,6 +519,7 @@ def phase_kernel(seed: int, smi: str) -> dict:
                 fail(f"sepconv {dtype} {(b, h, w, c, f)} relu={relu} "
                      f"relu_in={relu_in}: relative error {rel} > {rtol}")
             max_err = max(max_err, err)
+    max_err = max(max_err, _movie_batch_kernel(gen, smi))
     for b, acc in sums.items():
         print(f"[kernel] one bf16 batch of b={b} (34 sepconvs): kernel "
               f"{acc['ms']:.4f} ms, plain {acc['plain_ms']:.4f} ms, library "
@@ -525,6 +542,47 @@ def phase_kernel(seed: int, smi: str) -> dict:
                        else "operations")
     _descriptor_ring(gen)
     return res
+
+
+def _movie_batch_kernel(gen, smi: str) -> float:
+    """K1 against its plain version at the ten Xception-331 shapes at
+    MOVIE_BATCH (`tools/movie_predict.py`'s batch), float32 and bfloat16,
+    five timings each; returns the largest absolute error.  The kernel's
+    widest 32-bit quantity is the pixel count M = B H W (an int kernel
+    argument and TMA row coordinate); element offsets are 64-bit."""
+    from spnet_tpu_torch.ops.sepconv import sepconv_infer, \
+        sepconv_infer_torch
+
+    max_err = 0.0
+    for dtype, rtol in ((torch.float32, F32_RTOL),
+                        (torch.bfloat16, BF16_RTOL)):
+        total = 0.0
+        for _, h, w, c, f, relu, relu_in, uses in XCEPTION_SHAPES:
+            args = _sepconv_inputs(MOVIE_BATCH, h, w, c, f, dtype, gen)
+            kw = dict(relu=relu, relu_in=relu_in)
+            out = sepconv_infer(*args, **kw)
+            ref = sepconv_infer_torch(*args, **kw)
+            err = (out.float() - ref.float()).abs().max().item()
+            rel = err / max(ref.float().abs().max().item(), 1e-30)
+            t_k = cuda_median_ms(lambda: sepconv_infer(*args, **kw), reps=5)
+            total += uses * t_k
+            m = MOVIE_BATCH * h * w
+            name = str(dtype).replace("torch.", "")
+            print(f"[kernel] {name:8s} B={MOVIE_BATCH} {h}x{w} {c}->{f} "
+                  f"relu={relu:d} relu_in={relu_in:d}  max_abs_err "
+                  f"{err:.3e} (rel {rel:.2e}, tol {rtol})  kernel "
+                  f"{t_k:.4f} ms  M = B*H*W = {m} ({(2**31 - 1) / m:.0f}x "
+                  f"below the int32 range)  [{smi}]")
+            if not rel <= rtol:
+                fail(f"sepconv {dtype} B={MOVIE_BATCH} {(h, w, c, f)}: "
+                     f"relative error {rel} > {rtol}")
+            max_err = max(max_err, err)
+            del args, out, ref
+        print(f"[kernel] one {str(dtype).replace('torch.', '')} batch of "
+              f"b={MOVIE_BATCH} (34 sepconvs): kernel {total:.4f} ms  "
+              f"[{smi}]")
+    torch.cuda.empty_cache()
+    return max_err
 
 
 #: launches of the descriptor-ring check: more than the launcher's ring of
@@ -3072,6 +3130,139 @@ def phase_native(seed: int, smi: str) -> dict:
                 img_per_sec=hist[-1]["img_per_sec"], seconds=seconds)
 
 
+VALIDATION_ARGV = ["2", "32", "1e-4", "1024", "bfloat16", "331", "Xception"]
+VALIDATION_VAL = 256        # SPNET_NVAL of phase 19's dataset_a run
+VALIDATION_TTA_FRAMES = 4992  # eval_tta's val set (the tool's own)
+VALIDATION_MOVIE = 512      # movie_predict's frames, at MOVIE_BATCH
+
+
+def _tool(name: str, fn, argv, want: dict, smi: str):
+    """One validation tool's `main(argv)` with its stdout kept, and the
+    launch counts set to 0 just before it and checked against `want`
+    just after.  Returns (its result, its counts, its stdout)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    _zero_counts()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            out = fn(argv)
+    except BaseException:
+        print(buf.getvalue()[-4000:])
+        raise
+    seconds = time.perf_counter() - t0
+    counts = _counts()
+    mem = [line for line in buf.getvalue().splitlines()
+           if line.startswith("[memory]")]
+    print(f"[validation] {name} {' '.join(argv)}: {seconds:.1f} s; "
+          f"launches {counts}; {' | '.join(mem)}  [{smi}]")
+    if counts != want:
+        fail(f"validation {name}: launches {counts} != {want}")
+    return out, counts, buf.getvalue()
+
+
+def phase_validation(seed: int, smi: str) -> dict:
+    """Phase 19: the accuracy-validation tools (`spnet_tpu_torch/tools/`)
+    as a user runs them, in a temporary working directory (they write
+    under logs/): a 2-epoch `dataset_a` at full width, then
+    `eval_breakdown`, `eval_tta` and `movie_predict` on its checkpoint,
+    each with its own launch counts.  `seed` is unused: the tools seed
+    themselves, as their JAX counterparts do."""
+    from spnet_tpu_torch.config import ModelConfig
+    from spnet_tpu_torch.tools import dataset_a, eval_breakdown, eval_tta, \
+        movie_predict
+
+    del seed
+    t0 = time.perf_counter()
+    mc = ModelConfig()
+    epochs, b, n_train = (int(VALIDATION_ARGV[i]) for i in (0, 1, 3))
+    val_batches = -(-VALIDATION_VAL // max(b, min(VAL_BATCH,
+                                                   VALIDATION_VAL)))
+    tta_batches = -(-VALIDATION_TTA_FRAMES // VAL_BATCH) + 1  # + warm-up
+    env = {"SPNET_NVAL": str(VALIDATION_VAL), "SPNET_CKPT": "ck"}
+    saved = {k: os.environ.get(k) for k in (*env, "SPNET_LOGDIR",
+                                            "SPNET_DEVICE", "SPNET_AUGMENT",
+                                            "SPNET_REMAT",
+                                            "SPNET_TTA_PER_VIEW")}
+    cwd = os.getcwd()
+    res = {"counts": {}}
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            for k in saved:
+                os.environ.pop(k, None)
+            os.environ.update(env)
+            os.chdir(tmp)
+            out, res["counts"]["dataset_a"], text = _tool(
+                "dataset_a", dataset_a.main, VALIDATION_ARGV,
+                _want_counts(mc, predict_batches=(val_batches + 1)
+                             * epochs + val_batches + 1,
+                             train_steps=epochs * (n_train // b)), smi)
+            with open("logs/dataset_a/metrics.jsonl") as f:
+                losses = [json.loads(line)["train"] for line in f]
+            line = [l for l in text.splitlines()
+                    if l.startswith("DATASET_A_RESULT ")]
+            final = json.loads(line[0].split(" ", 1)[1])["final_eval"] \
+                if len(line) == 1 else {}
+            print(f"[validation] dataset_a: train loss by epoch {losses}; "
+                  f"final evaluation mAP {final.get('mAP')} ring_acc "
+                  f"{final.get('ring_acc')} class_acc "
+                  f"{final.get('class_acc')}  [{smi}]")
+            if len(line) != 1 or not all(
+                    np.isfinite(final.get(k, np.nan))
+                    for k in ("mAP", "ring_acc", "class_acc")):
+                fail(f"dataset_a: result line {line}")
+            if not (len(losses) == epochs and losses[1] < losses[0]):
+                fail(f"dataset_a: the train loss did not fall {losses}")
+            res["dataset_a"] = final
+
+            out, res["counts"]["eval_breakdown"], _ = _tool(
+                "eval_breakdown", eval_breakdown.main,
+                ["ck", str(VALIDATION_VAL)],
+                _want_counts(mc, predict_batches=val_batches + 1), smi)
+            print(f"[validation] BREAKDOWN {json.dumps(out)}")
+            if out["n_true"] <= 0:
+                fail(f"eval_breakdown: {out}")
+
+            out, res["counts"]["eval_tta"], text = _tool(
+                "eval_tta", eval_tta.main, ["ck"],
+                _want_counts(mc, predict_batches=(1 + 3 + 4)
+                             * tta_batches), smi)
+            maps = [l.strip(" ()") for l in text.splitlines()
+                    if "(calc_map:" in l]
+            print(f"[validation] eval_tta: {'; '.join(maps)}; plain ring_acc "
+                  f"{out['plain']['ring_acc']:.4f} mAP "
+                  f"{out['plain']['mAP']} | per view "
+                  f"{ {m: round(v['ring_acc'], 4) for m, v in out['per_view'].items()} }"
+                  f" | tta ring_acc {out['tta']['ring_acc']:.4f} mAP "
+                  f"{out['tta']['mAP']}  [{smi}]")
+            if set(out["per_view"]) != {"h", "v", "hv"} or not all(
+                    np.isfinite(out[r]["mAP"]) for r in ("plain", "tta")):
+                fail(f"eval_tta: {out}")
+
+            out, res["counts"]["movie_predict"], text = _tool(
+                "movie_predict", movie_predict.main,
+                [str(VALIDATION_MOVIE), str(MOVIE_BATCH)],
+                _want_counts(mc, predict_batches=2), smi)
+            fps = [l for l in text.splitlines() if "FPS = " in l]
+            print(f"[validation] MOVIE_RESULT {json.dumps(out)}; "
+                  f"{fps[-1].strip() if fps else ''}  [{smi}]")
+            if out["overlays"] != 8 or out["frames"] != VALIDATION_MOVIE:
+                fail(f"movie_predict: {out}")
+        finally:
+            os.chdir(cwd)
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+    torch.cuda.empty_cache()
+    res["seconds"] = time.perf_counter() - t0
+    print(f"[validation] phase 19 took {res['seconds']:.1f} s")
+    return res
+
+
 def _late_launches(name: str, feeds: dict, remat: dict, pre: dict) -> dict:
     """A loss kernel's launches on the paths of phases 11, 12 and 14."""
     return dict(feeds_launches={f: feeds[f]["counts"][name] for f in FEEDS},
@@ -3121,6 +3312,7 @@ def main(argv=None):
     print(f"[done] phases 15-16 took {time.perf_counter() - t2:.1f} s")
     bench = phase_bench(args.seed, smi)
     native = phase_native(args.seed, smi)
+    validation = phase_validation(args.seed, smi)
     print(f"[done] {time.perf_counter() - t0:.1f} s after the device phase; "
           f"train {train['img_per_sec']:.1f} images/s at b={TRAIN_BATCH}; "
           f"zoo train images/s "
@@ -3151,6 +3343,10 @@ def main(argv=None):
         # phase 18: the native serve (b=16) and the native 2-epoch run
         return {"serve": native["serve_counts"][name],
                 "train": native["train_counts"][name]}
+
+    def validation_launches(name):
+        # phase 19: each validation tool's run
+        return {t: c[name] for t, c in validation["counts"].items()}
 
     def dp_launches(name):
         # phase 16: the 1-rank NCCL group's 2-epoch run, and each gloo
@@ -3217,6 +3413,7 @@ def main(argv=None):
         "native_plain_ms": native["kern"]["sums"][16]["plain_ms"],
         "native_bound_ms": native["kern"]["sums"][16]["bound_ms"],
         "native_library_ms": native["kern"]["sums"][16]["library_ms"],
+        "validation_launches": validation_launches("sepconv_infer"),
     },
         # the loss alone; the train step's forward also writes the
         # gradient (fused_ms, fused_bound_ms)
@@ -3239,6 +3436,7 @@ def main(argv=None):
               dp_launches=dp_launches("spnet_loss_fwd"),
               bench_launches=bench_launches("spnet_loss_fwd"),
               native_launches=native_launches("spnet_loss_fwd"),
+              validation_launches=validation_launches("spnet_loss_fwd"),
               **_late_launches("spnet_loss_fwd", feeds, remat, pre)),
         # g * dloss/dy_pred from y_true, y_pred and g; the train step's
         # backward scales the kept gradient (scale_ms, scale_bound_ms)
@@ -3254,6 +3452,7 @@ def main(argv=None):
               dp_launches=dp_launches("spnet_loss_bwd"),
               bench_launches=bench_launches("spnet_loss_bwd"),
               native_launches=native_launches("spnet_loss_bwd"),
+              validation_launches=validation_launches("spnet_loss_bwd"),
               **_late_launches("spnet_loss_bwd", feeds, remat, pre)),
         small("selective_sigmoid_fwd", k4_src, k4_at,
               heads["ss"]["predict_counts"]["selective_sigmoid_fwd"],

@@ -9,6 +9,7 @@ Counterpart of `spnet_tpu/eval/evaluate.py` (reference
 from __future__ import annotations
 
 import os
+import time
 
 import numpy as np
 import torch
@@ -36,7 +37,8 @@ def evaluate_network(
 ) -> dict:
     """Returns a metrics dict (mAP, accuracies, pixel error, FPS).  tta:
     comma-separated flip modes ('h', 'v', 'hv') ensembled with the direct
-    view; fps is then frames over the time of all views."""
+    view; fps is then frames over the time of all views.  With verbose,
+    it prints the host seconds of `calc_map`."""
     os.makedirs(log_dir, exist_ok=True)
     # eval predictions do not depend on the batch size: sweep the test set
     # in large batches, as the JAX package does
@@ -68,9 +70,13 @@ def evaluate_network(
 
     results = {"fps": fps}
     if compute_map:
+        t0 = time.perf_counter()
         results["mAP"] = calc_map(yp, yt, cfg.grid, verbose=verbose > 1)
+        map_s = time.perf_counter() - t0
         if verbose:
             print(f"mAP = {results['mAP']}")
+            print(f"    (calc_map: {yp.shape[0]} frames in {map_s:.3f} s "
+                  "on the host)")
     st = calc_errors(yp, yt)
     results.update(
         ring_acc=st.ring_acc,

@@ -1,1 +1,4 @@
-"""Measurement tools for the port's kernels (run on a CUDA host)."""
+"""Measurement tools for the port's kernels and benchmarks (run on a CUDA
+host), and the accuracy-validation tools of the JAX package's scripts
+(`dataset_a`, `sanity_train`, `eval_breakdown`, `eval_tta`,
+`movie_predict`; on the card unless asked for the CPU)."""

@@ -69,6 +69,23 @@ def pipelined(predict, x, batch_size: int):
     return y, x.shape[0] / (time.perf_counter() - t0)
 
 
+#: one side stream a device for every capture: cuBLAS keeps a workspace
+#: (32 MiB + 1 MiB for cuBLASLt on an H100) for each stream that runs a
+#: matmul until the process ends, so a new stream a capture grows the
+#: card's memory by 33 MiB a sweep
+_CAPTURE_STREAMS: dict = {}
+
+
+def capture_stream(device: torch.device) -> torch.cuda.Stream:
+    """The side stream that `captured_sweep` captures on, one a device."""
+    key = torch.device(device).index
+    if key is None:
+        key = torch.cuda.current_device()
+    if key not in _CAPTURE_STREAMS:
+        _CAPTURE_STREAMS[key] = torch.cuda.Stream(key)
+    return _CAPTURE_STREAMS[key]
+
+
 def captured_sweep(predict, x, batch_size: int):
     """Mode 2: (outputs (steps * batch_size, M) float32 on the host,
     frames/s) of the first `steps = n // batch_size` batches as one CUDA
@@ -87,7 +104,7 @@ def captured_sweep(predict, x, batch_size: int):
         y = sweep().cpu()
         return y.reshape(-1, y.shape[-1]).float(), \
             steps * batch_size / (time.perf_counter() - t0)
-    stream = torch.cuda.Stream(x.device)
+    stream = capture_stream(x.device)
     stream.wait_stream(torch.cuda.current_stream(x.device))
     with torch.cuda.stream(stream):
         predict(xs[0])
