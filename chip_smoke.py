@@ -61,7 +61,9 @@ check raises and the run exits non-zero:
                and 256 val frames resident on the card, augmentation on,
                2 epochs with a checkpoint each, then the same run asked for 3
                epochs, which must resume at epoch 3 from the saved step and
-               optimizer count.  Checks K2 and K3 launches = train steps, K1
+               optimizer count.  Checks K2 and K3 launches (on the epoch
+               form, the CUDA graph of phase 20: its eager warm-up steps
+               and the captured step; elsewhere every step), K1
                launches = 34 per val batch (warm-up included), finite losses,
                moved BN statistics, losses.dat and the checkpoint; prints the
                train images/s.  Then 30 steps on one b=16 batch (no
@@ -79,7 +81,8 @@ check raises and the run exits non-zero:
                and the f32 model with the kernels against the plain versions
                (rel 1e-4); the 'ss' head trained through `train_network`
                (b=128, 2 epochs of 4 steps; the loss kernel's 'ss' variant
-               and the scale launch once per step, K4 only in the val
+               and the scale launch in each eager or captured step, K4
+               only in the val
                sweeps) and one f32 train step on the fused route against
                the plain model with the kernel loss, under 'same' and
                'hybrid' (loss rel 1e-6, head-weight gradient rel 1e-5), and
@@ -93,7 +96,7 @@ check raises and the run exits non-zero:
                compute with f32 params, each served (port checkpoint, the
                CLI's loader, 64 frames at b=16) and trained (b=128, 2
                epochs of 4 steps, then resumed to 3), with every launch
-               count checked (no K1 or K4; K2 = K3 = train steps); one f32
+               count checked (no K1 or K4; K2 = K3 as in phase 6); one f32
                step with the kernel loss against the plain twin; the f32
                eval output on the card against the same model on the CPU
                on 2 frames (TF32 off, rel ZOO_CPU_RTOL); predict frames/s,
@@ -134,7 +137,8 @@ check raises and the run exits non-zero:
                512): Xception-331 bf16, b=128, 2048 seeded frames + 256
                val, augmentation on, 2 epochs a run, two runs of each in
                turns (resident, host-fed, chunked, then reversed), with
-               their images/s and launch counts (K2 = K3 = steps, K1 34
+               their images/s and launch counts (K2 = K3 = steps; the
+               resident feed's as in phase 6, K1 34
                per val batch);
                every host-fed batch and every chunk on the card equal to
                its host rows, and the chunked visit order equal to the
@@ -171,7 +175,8 @@ check raises and the run exits non-zero:
                editor's data model (no display here);
   16. dp     - data-parallel training, Xception-331 bf16 with f32 params:
                (a) a 1-rank NCCL group through `train_network` (b=128, 512
-               + 256 frames, 2 epochs, resumed to 3; K2 = K3 = steps, K1 34
+               + 256 frames, 2 epochs, resumed to 3; K2 = K3 = steps: a
+               group trains eager steps, K1 34
                per val batch), 2 steps (augmentation and dropout off)
                bitwise the same without a group, train images/s with
                and without the group in turns, and the step with and
@@ -189,7 +194,9 @@ check raises and the run exits non-zero:
   17. bench  - the port's benchmarks as a user runs them:
                `tools/bench.py::main` (Xception-331 bf16, b=128, the
                synthetic set, a warm-up and a timed epoch of BENCH_STEPS
-               steps: its four keys, a finite positive rate, K2 = K3 =
+               steps, through the epoch form and the eager steps in turns:
+               its four keys, a finite positive rate, K2 = K3 = the graphed
+               turns' warm-up steps and captures + the eager turns'
                steps), then `tools/bench_infer.py`'s two modes (pipelined
                batches; the sweep captured once as a CUDA graph and
                replayed) at b=64 and b=16 over 4096 seeded frames: frames/s
@@ -217,6 +224,25 @@ check raises and the run exits non-zero:
                view, the flip ensemble) and `movie_predict` (512 native
                .bmp frames at b=512); each tool's K1-K3 launches checked and
                its memory readings printed.
+  20. epoch  - the epoch form (`train/steps.py::make_train_epoch`: the
+               train step captured once as a CUDA graph, with the
+               augmentation and dropout generator registered, and replayed
+               once a minibatch), which `train_network` trains the resident
+               feed through on one rank, against the eager steps from the
+               same seeded model and generator seeds, cuDNN deterministic:
+               Xception-331 bf16 with f32 params at b=16 and b=128, the
+               'ss' head and geometric augmentation at b=16; 8 steps with
+               augmentation on, as two epochs of 4 with `unfreeze` between
+               (freeze_fac 0.5 before it, so the graph is captured again
+               after it): losses, parameters, BN statistics, Adam moments
+               and counts bitwise equal; K2 / K3 (and the 'ss' variant's)
+               launches = the warm-up steps and the captured step of each
+               capture; capture seconds; both ways, the peak of
+               `max_memory_allocated` above what was in use before the run
+               and the reserved memory `empty_cache` cannot free that the
+               run added (the graph's private pool); then train images/s
+               both ways in turns (graph, eager, eager, graph; 32 steps an
+               epoch at b=16, 16 at b=128).
 
 Every model path runs with all five launch counts (and the loss kernel's
 count of 'ss' launches) set to 0 just before it and checks them all just
@@ -228,7 +254,9 @@ after.  The line before the last is the kernels' JSON record (for K2-K4
 those of phase 16, `bench_launches` and `native_launches` those of phases
 17 and 18; K1 adds its native b=16 batch's `native_ms`, `native_plain_ms`,
 `native_bound_ms` and `native_library_ms`; K1-K3 add
-`validation_launches`, each tool's count in phase 19); the last line is
+`validation_launches`, each tool's count in phase 19; K2-K3 add
+`epoch_launches`, phase 20's graphed runs, and K2 `epoch_ss_launches`);
+the last line is
 `{"ok": true, "device": {...}}`.  Exits
 non-zero without a result when no CUDA device is available.  Needs torch
 and numpy, no jax; phase 10 writes and reads PNG files with PIL.
@@ -616,9 +644,10 @@ def _descriptor_ring(gen):
         fail(f"sepconv after the descriptor ring wrapped: rel err {worst}")
 
 
-def _seeded_dataset(n: int, size: int, grid, seed: int):
+def _seeded_dataset(n: int, size: int, grid, seed: int, raw: bool = False):
     """n uint8 (size, size, 1) frames (native 384 x 512 for size 0) and
-    their normalized grid labels, from numpy only."""
+    their normalized grid labels, from numpy only; with `raw` also each
+    frame's raw ellipse rows (native coordinates)."""
     from spnet_tpu_torch.grid import (
         batch_ellipses_to_grid, canonicalize_records, normalize,
     )
@@ -626,19 +655,19 @@ def _seeded_dataset(n: int, size: int, grid, seed: int):
     rng = np.random.default_rng(seed)
     hw = (size, size) if size else (grid.img_height, grid.img_width)
     x = rng.integers(0, 256, (n, *hw, 1), dtype=np.uint8)
-    recs = []
+    recs, raws = [], []
     for _ in range(n):
         k = int(rng.integers(1, 7))
         a = rng.uniform(12, 90, k)
-        raw = np.stack([rng.uniform(grid.cx_min, grid.cx_max, k),
-                        rng.uniform(grid.cy_min, grid.cy_max, k),
-                        a, a * rng.uniform(0.4, 1.0, k),
-                        rng.uniform(0, 180, k),
-                        rng.uniform(1, 11, k)], axis=1)
-        recs.append(canonicalize_records(raw))
+        raws.append(np.stack([rng.uniform(grid.cx_min, grid.cx_max, k),
+                              rng.uniform(grid.cy_min, grid.cy_max, k),
+                              a, a * rng.uniform(0.4, 1.0, k),
+                              rng.uniform(0, 180, k),
+                              rng.uniform(1, 11, k)], axis=1))
+        recs.append(canonicalize_records(raws[-1]))
     y = normalize(batch_ellipses_to_grid(recs, grid, on_overflow="drop"),
                   grid).astype(np.float32)
-    return x, y
+    return (x, y, raws) if raw else (x, y)
 
 
 def _wrappers() -> dict:
@@ -1043,6 +1072,7 @@ def _train_run(cfg, train_ds, val_ds, tmp, smi, tag="train", **feed):
     with every launch count set to 0 before and read after; checks what a
     run must show."""
     from spnet_tpu_torch.io.checkpoint import load_checkpoint
+    from spnet_tpu_torch.parallel import mesh
     from spnet_tpu_torch.train.loop import train_network
 
     log_dir, ckpt = os.path.join(tmp, "log"), os.path.join(tmp, "ckpt")
@@ -1061,11 +1091,17 @@ def _train_run(cfg, train_ds, val_ds, tmp, smi, tag="train", **feed):
     steps = epochs * steps_per_epoch
     val_batches = -(-len(val_ds.x) // max(tc.batch_size,
                                           min(VAL_BATCH, len(val_ds.x))))
+    # the resident feed on one rank without remat trains through the
+    # epoch form: its warm-up steps and one capture pass the wrappers
+    epoch_form = feed.get("device_data") in (None, True) and \
+        not mesh.active() and not cfg.model.remat
     want = _want_counts(cfg.model, predict_batches=(val_batches + 1) * epochs,
-                        train_steps=steps)
+                        train_steps=_epoch_calls(steps) if epoch_form
+                        else steps)
     print(f"[{tag}] epochs {start + 1}..{tc.epochs}: {seconds:.1f} s; "
-          f"{steps} steps, {val_batches} val batch(es) + 1 warm-up per "
-          f"epoch; launches {counts}")
+          f"{steps} steps ({'the epoch form' if epoch_form else 'eager'}), "
+          f"{val_batches} val batch(es) + 1 warm-up per epoch; launches "
+          f"{counts}")
     if counts != want:
         fail(f"{tag}: train launches {counts} != {want}")
     if [h["epoch"] for h in hist] != list(range(start, tc.epochs)):
@@ -1735,7 +1771,7 @@ def _cli_gen_and_profile(tmp: str, smi: str) -> dict:
         v = n_val // PROFILE_BATCH * PROFILE_BATCH  # build_dataset's cut
         val_batches = -(-v // max(PROFILE_BATCH, min(VAL_BATCH, v)))
         want = _want_counts(ModelConfig(), predict_batches=val_batches + 1,
-                            train_steps=steps)
+                            train_steps=_epoch_calls(steps))
         events = glob.glob(os.path.join(log_dir, "tb", "events.*"))
         print(f"[synth] train --geo_augment --epoch_repeats {GEO_REPEATS} "
               f"--use_tb --profile, 1 epoch at b={PROFILE_BATCH}: "
@@ -2947,7 +2983,8 @@ def phase_dp(seed: int, smi: str) -> dict:
         rates[mode].append(hist_t[-1]["img_per_sec"])
     print(f"[dp] train images/s at b={TRAIN_BATCH}, epoch 2 of "
           f"{DP_TURN_FRAMES} frames, in turns {DP_TURNS}: 1-rank NCCL "
-          f"group (DDP) {[round(v, 1) for v in rates['group']]}, no group "
+          f"group (DDP, eager steps) {[round(v, 1) for v in rates['group']]}"
+          f", no group (the graphed epoch form) "
           f"{[round(v, 1) for v in rates['none']]}  [{smi}]")
     with tempfile.TemporaryDirectory() as tmp:
         profile = _dp_step_profile(cfg, turn_train, tmp, smi)
@@ -2975,7 +3012,10 @@ def phase_bench(seed: int, smi: str) -> dict:
     _zero_counts()
     out = bench.main(steps_per_epoch=BENCH_STEPS)
     counts = _counts()
-    want = _want_counts(ModelConfig(), train_steps=2 * BENCH_STEPS)
+    # the graphed turns' warm-up and capture, the eager turns' every step
+    want = _want_counts(ModelConfig(), train_steps=sum(
+        _epoch_calls(2 * BENCH_STEPS) if form == "graph" else 2 * BENCH_STEPS
+        for form in bench.TURNS))
     print(f"[bench] bench.main(steps_per_epoch={BENCH_STEPS}) (warm-up + "
           f"timed epoch): {json.dumps(out)}; launches {counts}  [{smi}]")
     if tuple(out) != ("metric", "value", "unit", "vs_baseline") or not (
@@ -3198,7 +3238,8 @@ def phase_validation(seed: int, smi: str) -> dict:
                 "dataset_a", dataset_a.main, VALIDATION_ARGV,
                 _want_counts(mc, predict_batches=(val_batches + 1)
                              * epochs + val_batches + 1,
-                             train_steps=epochs * (n_train // b)), smi)
+                             train_steps=_epoch_calls(
+                                 epochs * (n_train // b))), smi)
             with open("logs/dataset_a/metrics.jsonl") as f:
                 losses = [json.loads(line)["train"] for line in f]
             line = [l for l in text.splitlines()
@@ -3263,6 +3304,195 @@ def phase_validation(seed: int, smi: str) -> dict:
     return res
 
 
+EPOCH_FRAMES = 256        # phase 20's resident frames
+EPOCH_BATCHES = (16, 128)
+EPOCH_STEPS, EPOCH_SPLIT = 8, 4  # steps of a pair run; unfreeze after 4
+EPOCH_FREEZE = 0.5        # freeze_fac of its first epoch
+EPOCH_TIMED = {16: 32, 128: 16}  # steps of a timed epoch, by batch
+EPOCH_TURNS = ("graph", "eager", "eager", "graph")
+
+
+def _epoch_calls(steps: int) -> int:
+    """The loss wrapper's calls in `steps` steps of the epoch form after a
+    (re)capture: the eager warm-up steps and the one captured step (the
+    replays do not pass through the wrapper)."""
+    from spnet_tpu_torch.train.steps import WARMUP_STEPS
+
+    return min(WARMUP_STEPS, steps) + int(steps > WARMUP_STEPS)
+
+
+def _states_equal(a, b) -> list:
+    """Names of the leaves where two train states differ bitwise: the
+    model's parameters and buffers, the Adam moments, the device count and
+    the host ints."""
+    bad = [k for (k, v), w in zip(a.model.state_dict().items(),
+                                  b.model.state_dict().values())
+           if not torch.equal(v, w)]
+    for name in ("mu", "nu"):
+        for i, (u, v) in enumerate(zip(getattr(a.opt_state, name),
+                                       getattr(b.opt_state, name))):
+            if (u is None) != (v is None) or (
+                    u is not None and not torch.equal(u, v)):
+                bad.append(f"{name}[{i}]")
+    if not torch.equal(a.opt_state.t, b.opt_state.t):
+        bad.append("t")
+    if (a.step, a.opt_state.count) != (b.step, b.opt_state.count):
+        bad.append("step/count")
+    return bad
+
+
+def _epoch_trainer(form: str, mc, data, seed: int):
+    """A seeded model's train state (freeze_fac EPOCH_FREEZE, optax Adam
+    under onecycle(1e-4, 100)) and epoch(rows, generator seed) -> losses:
+    the graphed epoch form (form 'graph') or the eager steps ('eager'), on
+    `data` ((x_all, y_all) or, geo, (x_all, y_all, rows_all, mask_all)).
+    Returns (box with the 'state', epoch, the epoch form's capture
+    seconds)."""
+    from spnet_tpu_torch.config import GridSpec, LossWeights
+    from spnet_tpu_torch.models.spnet import build_model
+    from spnet_tpu_torch.train.schedule import onecycle_schedule
+    from spnet_tpu_torch.train.state import create_train_state
+    from spnet_tpu_torch.train.steps import make_train_epoch, make_train_step
+
+    geo = len(data) == 4
+    grid = GridSpec()
+    model = build_model(mc, num_outputs=grid.num_outputs, device=DEVICE,
+                        generator=torch.Generator().manual_seed(seed))
+    box = {"state": create_train_state(model, onecycle_schedule(1e-4, 100),
+                                       freeze_fac=EPOCH_FREEZE,
+                                       adam_variant="optax")}
+    step = make_train_step(model, LossWeights(), mc.loss_type,
+                           l2_reg=mc.l2_reg, augment=True, geo_augment=geo,
+                           grid=grid)
+    train_epoch = make_train_epoch(step, geo)
+    gen = torch.Generator(device=DEVICE)
+
+    def epoch(rows, gen_seed: int):
+        gen.manual_seed(gen_seed)
+        if form == "graph":
+            return train_epoch(box["state"], *data, rows, gen)[1]
+        return torch.stack([step(box["state"], *data, r, gen)[1]["loss"]
+                            for r in rows])
+
+    return box, epoch, train_epoch.capture_seconds
+
+
+def _epoch_pair(mc, b: int, data, seed: int, tag: str, smi: str) -> dict:
+    """The graphed epoch form and the eager steps from the same seeded
+    model and generator seeds (`_epoch_trainer`): EPOCH_STEPS steps
+    (augmentation on, the model's dropout) as two epochs of EPOCH_SPLIT
+    with `unfreeze` between; losses, parameters, BN statistics, Adam
+    moments and counts must be bitwise equal.  Then both train on in turns
+    (EPOCH_TURNS, EPOCH_TIMED[b] steps an epoch, after one untimed graphed
+    epoch of that length, which captures again for its longer buffers):
+    images/s each way."""
+    from spnet_tpu_torch.train.state import unfreeze
+
+    rng = np.random.default_rng(seed)
+    n = data[0].shape[0]
+    idx = torch.from_numpy(rng.integers(0, n, (EPOCH_STEPS, b))).to(DEVICE)
+    runs = {}
+    for form in ("graph", "eager"):
+        box, epoch, captures = _epoch_trainer(form, mc, data, seed)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        held0 = torch.cuda.memory_reserved() - torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()  # the other run's state too
+        _zero_counts()
+        t0 = time.perf_counter()
+        first = epoch(idx[:EPOCH_SPLIT], seed * 1_000_003)
+        box["state"] = unfreeze(box["state"], adam_variant="optax")
+        losses = torch.cat([first, epoch(idx[EPOCH_SPLIT:],
+                                         seed * 1_000_003 + 1)])
+        float(losses[-1])
+        seconds = time.perf_counter() - t0
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+        # what the cache cannot give back after the run: the private pool
+        # of the graph it captured
+        torch.cuda.empty_cache()
+        held = (torch.cuda.memory_reserved() - torch.cuda.memory_allocated()
+                - held0) / 2**30
+        runs[form] = dict(state=box["state"], epoch=epoch, losses=losses,
+                          counts=_counts(), seconds=seconds, peak_gib=peak,
+                          held_gib=held, captures=list(captures))
+    g, e = runs["graph"], runs["eager"]
+    bad = _states_equal(g["state"], e["state"])
+    same = torch.equal(g["losses"], e["losses"])
+    want_g = _want_counts(mc, train_steps=2 * _epoch_calls(EPOCH_SPLIT))
+    want_e = _want_counts(mc, train_steps=EPOCH_STEPS)
+    print(f"[epoch] {tag} b={b}: {EPOCH_STEPS} steps, unfreeze after "
+          f"{EPOCH_SPLIT}: graphed losses {g['losses'].tolist()}; eager "
+          f"bitwise equal: losses {same}, every parameter, BN statistic, "
+          f"Adam moment and count {not bad} {bad[:5]}; captures "
+          f"{[round(c, 3) for c in g['captures']]} s; launches graphed "
+          f"{g['counts']} (warm-ups + the graph's contents), eager "
+          f"{e['counts']}; peak allocated above the memory in use before "
+          f"the run, graphed {g['peak_gib']:.4f} / "
+          f"eager {e['peak_gib']:.4f} GiB; reserved and free after "
+          f"empty_cache, more than before the run (the graph's pool) "
+          f"{g['held_gib']:.4f} / {e['held_gib']:.4f} GiB  [{smi}]")
+    if not same or bad or not torch.isfinite(g["losses"]).all():
+        fail(f"epoch {tag} b={b}: graphed vs eager differ: losses {same}, "
+             f"leaves {bad[:10]}")
+    if g["counts"] != want_g or e["counts"] != want_e:
+        fail(f"epoch {tag} b={b}: launches {g['counts']} / {e['counts']} "
+             f"!= {want_g} / {want_e}")
+    steps = EPOCH_TIMED[b]
+    timed = torch.from_numpy(rng.integers(0, n, (steps, b))).to(DEVICE)
+    float(g["epoch"](timed, seed)[-1])  # the graph's longer buffers
+    rates = {"graph": [], "eager": []}
+    for k, form in enumerate(EPOCH_TURNS):
+        t0 = time.perf_counter()
+        float(runs[form]["epoch"](timed, seed + 1 + k)[-1])
+        rates[form].append(b * steps / (time.perf_counter() - t0))
+    print(f"[epoch] {tag} b={b}: train images/s, {steps} steps an epoch, "
+          f"in turns {EPOCH_TURNS}: graphed "
+          f"{[round(v, 2) for v in rates['graph']]}, eager "
+          f"{[round(v, 2) for v in rates['eager']]}  [{smi}]")
+    g_peak, e_peak = g["peak_gib"], e["peak_gib"]
+    del runs, g, e
+    torch.cuda.empty_cache()
+    return dict(counts=want_g, rates=rates, bitwise=True,
+                peak_gib=(g_peak, e_peak))
+
+
+def phase_epoch(seed: int, smi: str) -> dict:
+    """Phase 20: the epoch form (`train/steps.py::make_train_epoch`, a CUDA
+    graph of the train step replayed once a minibatch) against the eager
+    steps at full width, Xception-331 bf16 with f32 params, cuDNN
+    deterministic: b=16 and b=128, the 'ss' head at b=16, and geometric
+    augmentation at b=16 (`_epoch_pair`)."""
+    import dataclasses
+
+    from spnet_tpu_torch.config import GridSpec, ModelConfig
+    from spnet_tpu_torch.data.dataset import pad_raw_rows
+
+    t0 = time.perf_counter()
+    grid = GridSpec()
+    mc = ModelConfig()
+    x, y, raws = _seeded_dataset(EPOCH_FRAMES, mc.input_size, grid, seed,
+                                 raw=True)
+    rows, mask = pad_raw_rows(raws)
+    x, y, rows, mask = (torch.from_numpy(a).to(DEVICE)
+                        for a in (x, y, rows, mask))
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    res = {}
+    try:
+        for b in EPOCH_BATCHES:
+            res[f"b{b}"] = _epoch_pair(mc, b, (x, y), seed, "default", smi)
+        res["ss"] = _epoch_pair(dataclasses.replace(
+            mc, selective_sigmoid=True), 16, (x, y), seed, "ss", smi)
+        res["geo"] = _epoch_pair(mc, 16, (x, y, rows, mask), seed, "geo",
+                                 smi)
+    finally:
+        torch.backends.cudnn.deterministic = det
+    res["seconds"] = time.perf_counter() - t0
+    print(f"[epoch] phase 20 took {res['seconds']:.1f} s")
+    return res
+
+
 def _late_launches(name: str, feeds: dict, remat: dict, pre: dict) -> dict:
     """A loss kernel's launches on the paths of phases 11, 12 and 14."""
     return dict(feeds_launches={f: feeds[f]["counts"][name] for f in FEEDS},
@@ -3313,6 +3543,7 @@ def main(argv=None):
     bench = phase_bench(args.seed, smi)
     native = phase_native(args.seed, smi)
     validation = phase_validation(args.seed, smi)
+    epoch = phase_epoch(args.seed, smi)
     print(f"[done] {time.perf_counter() - t0:.1f} s after the device phase; "
           f"train {train['img_per_sec']:.1f} images/s at b={TRAIN_BATCH}; "
           f"zoo train images/s "
@@ -3347,6 +3578,12 @@ def main(argv=None):
     def validation_launches(name):
         # phase 19: each validation tool's run
         return {t: c[name] for t, c in validation["counts"].items()}
+
+    def epoch_launches(name):
+        # phase 20: the graphed epoch form's 8-step runs (warm-up steps and
+        # the captured graphs' contents; the replays pass no wrapper)
+        return {k: r["counts"][name] for k, r in epoch.items()
+                if k != "seconds"}
 
     def dp_launches(name):
         # phase 16: the 1-rank NCCL group's 2-epoch run, and each gloo
@@ -3437,6 +3674,8 @@ def main(argv=None):
               bench_launches=bench_launches("spnet_loss_fwd"),
               native_launches=native_launches("spnet_loss_fwd"),
               validation_launches=validation_launches("spnet_loss_fwd"),
+              epoch_launches=epoch_launches("spnet_loss_fwd"),
+              epoch_ss_launches=epoch["ss"]["counts"][SS_COUNT],
               **_late_launches("spnet_loss_fwd", feeds, remat, pre)),
         # g * dloss/dy_pred from y_true, y_pred and g; the train step's
         # backward scales the kept gradient (scale_ms, scale_bound_ms)
@@ -3453,6 +3692,7 @@ def main(argv=None):
               bench_launches=bench_launches("spnet_loss_bwd"),
               native_launches=native_launches("spnet_loss_bwd"),
               validation_launches=validation_launches("spnet_loss_bwd"),
+              epoch_launches=epoch_launches("spnet_loss_bwd"),
               **_late_launches("spnet_loss_bwd", feeds, remat, pre)),
         small("selective_sigmoid_fwd", k4_src, k4_at,
               heads["ss"]["predict_counts"]["selective_sigmoid_fwd"],

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from spnet_tpu_torch.ops.constants import device_constant
 from spnet_tpu_torch.parallel import mesh
 
 CUTOUT_MAX_REGIONS = 6
@@ -109,7 +110,7 @@ def _gauss1d(ksize: int) -> np.ndarray:
 def _blur(images, ksize: int):
     """Separable Gaussian blur, SAME with zero padding, per channel."""
     c = images.shape[-1]
-    k = torch.from_numpy(_gauss1d(ksize)).to(images.device, images.dtype)
+    k = device_constant(_gauss1d(ksize), images.device, images.dtype)
     x = images.permute(0, 3, 1, 2)
     x = F.conv2d(x, k.view(1, 1, ksize, 1).expand(c, 1, ksize, 1),
                  padding=(ksize // 2, 0), groups=c)

@@ -24,9 +24,11 @@ rounding in those two lanes only.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from spnet_tpu_torch.config import IND_CX, IND_CY, VARS_PER_PRED, GridSpec
+from spnet_tpu_torch.ops.constants import device_constant
 
 #: Sort key of an invalid row: after every real center.
 _INVALID_KEY = 1e9
@@ -90,8 +92,9 @@ def encode_rows_device(rows, mask, grid: GridSpec):
     slots = grid.nx * grid.ny * grid.preds_per_cell
     keep = valid & (slot < grid.preds_per_cell)
     flat_idx = torch.where(keep, cell * grid.preds_per_cell + slot, slots)
-    g = torch.cat([torch.from_numpy(grid.defaults.reshape(-1, VARS_PER_PRED)),
-                   torch.zeros(1, VARS_PER_PRED)]).to(rows.device)
+    g = device_constant(np.concatenate([
+        grid.defaults.reshape(-1, VARS_PER_PRED),
+        np.zeros((1, VARS_PER_PRED), grid.defaults.dtype)]), rows.device)
     g = g.expand(b, slots + 1, VARS_PER_PRED).clone()
     g.scatter_(1, flat_idx[..., None].expand(b, n, VARS_PER_PRED), rec)
     return g[:, :slots].reshape(b, -1)
@@ -106,6 +109,6 @@ def encode_batch_device(rows, mask, grid: GridSpec, normalized: bool = True):
     flat = encode_rows_device(rows, mask, grid)
     if normalized:
         dev = flat.device
-        flat = ((flat - torch.from_numpy(grid.means).to(dev))
-                / torch.from_numpy(grid.ranges).to(dev))
+        flat = ((flat - device_constant(grid.means, dev))
+                / device_constant(grid.ranges, dev))
     return flat

@@ -12,9 +12,14 @@ loss kernels K2/K3, the backward pass and Adam under
 `onecycle_schedule(4e-5, 100_000)`.  The minibatches are
 `np.random.default_rng(seed).integers(0, n, (steps, b))`, seed 1 for the
 warm-up epoch and 2 for the timed one.  Where JAX runs an epoch as one
-`lax.scan` program, the port enqueues its steps from a Python loop with
-no host sync in between; the timed epoch ends at the host value of its
-last loss, which depends on every step before it.
+`lax.scan` program, the port runs its epoch form
+(`train/steps.py::make_train_epoch`): the step captured once as a CUDA
+graph in the warm-up epoch and replayed once a minibatch.  The eager
+steps (enqueued from a Python loop, no host sync in between) are timed
+beside it, in turns (graph, eager, eager, graph), each turn from a fresh
+train state; the value is the graphed turns' mean, the unit names the
+eager one's.  A timed epoch ends at the host value of its last loss,
+which depends on every step before it.
 
 Environment: SPNET_BENCH_BS (batch size, same images timed),
 SPNET_BENCH_AUGMENT=0 (augmentation off, a diagnostic), SPNET_BENCH_DTYPE
@@ -29,6 +34,7 @@ reference's 126.6 img/s on an RTX 2080 Ti, BASELINE.md).
 from __future__ import annotations
 
 import os
+import statistics
 import time
 
 import numpy as np
@@ -40,11 +46,13 @@ from spnet_tpu_torch.data.dataset import synthetic_dataset
 from spnet_tpu_torch.models.spnet import build_model
 from spnet_tpu_torch.train.schedule import onecycle_schedule
 from spnet_tpu_torch.train.state import create_train_state
-from spnet_tpu_torch.train.steps import make_train_step
+from spnet_tpu_torch.train.steps import make_train_epoch, make_train_step
 
 BASELINE_IMG_PER_SEC = 126.6  # RTX 2080 Ti, BASELINE.md
 LR_MAX, SCHEDULE_STEPS = 4e-5, 100_000
 WARMUP_SEED, TIMED_SEED = 1, 2
+#: the order of the timed runs of the two forms
+TURNS = ("graph", "eager", "eager", "graph")
 
 
 def model_config(backbone: str = "Xception", input_size: int = 331):
@@ -65,30 +73,27 @@ def index_matrix(seed: int, steps: int, n: int, batch_size: int
     return np.random.default_rng(seed).integers(0, n, (steps, batch_size))
 
 
-def train_epochs(model, model_cfg, x_all, y_all, batch_size: int,
-                 steps_per_epoch: int, augment: bool = True):
-    """The benchmark's two epochs on `model` from a fresh train state: the
-    warm-up epoch (index seed 1, augmentation generator seed 1), then the
-    timed one (seeds 2).  x_all (n, H, W, 1) uint8 and y_all (n, M) on the
-    device.  Returns (warm-up losses, timed losses: (steps,) device
-    tensors, seconds of the timed epoch to the host value of its last
-    loss)."""
+def _two_epochs(model, model_cfg, x_all, y_all, batch_size: int,
+                steps_per_epoch: int, augment: bool, graphed: bool):
+    """The warm-up and the timed epoch from a fresh train state, through
+    the epoch form (graphed) or the eager steps."""
     device, n = x_all.device, x_all.shape[0]
     state = create_train_state(
         model, onecycle_schedule(LR_MAX, total_steps=SCHEDULE_STEPS))
     step = make_train_step(model, LossWeights(), model_cfg.loss_type,
                            l2_reg=model_cfg.l2_reg, augment=augment,
                            indexed="epoch")
+    train_epoch = make_train_epoch(step)
+    gen = torch.Generator(device=device)
 
     def epoch(seed):
         idx = torch.from_numpy(index_matrix(seed, steps_per_epoch, n,
                                             batch_size)).to(device)
-        gen = torch.Generator(device=device).manual_seed(seed)
-        losses = []
-        for row in idx:
-            _, metrics = step(state, x_all, y_all, row, gen)
-            losses.append(metrics["loss"])
-        return torch.stack(losses)
+        gen.manual_seed(seed)
+        if graphed:
+            return train_epoch(state, x_all, y_all, idx, gen)[1]
+        return torch.stack([step(state, x_all, y_all, row, gen)[1]["loss"]
+                            for row in idx])
 
     warm = epoch(WARMUP_SEED)
     float(warm[-1])
@@ -96,6 +101,26 @@ def train_epochs(model, model_cfg, x_all, y_all, batch_size: int,
     timed = epoch(TIMED_SEED)
     float(timed[-1])
     return warm, timed, time.perf_counter() - t0
+
+
+def train_epochs(model, model_cfg, x_all, y_all, batch_size: int,
+                 steps_per_epoch: int, augment: bool = True):
+    """The benchmark's two epochs on `model` from a fresh train state
+    through the epoch form (a CUDA graph of the step on the card, captured
+    in the warm-up epoch): the warm-up epoch (index seed 1, augmentation
+    generator seed 1), then the timed one (seeds 2).  x_all (n, H, W, 1)
+    uint8 and y_all (n, M) on the device.  Returns (warm-up losses, timed
+    losses: (steps,) device tensors, seconds of the timed epoch to the
+    host value of its last loss)."""
+    return _two_epochs(model, model_cfg, x_all, y_all, batch_size,
+                       steps_per_epoch, augment, graphed=True)
+
+
+def eager_epochs(model, model_cfg, x_all, y_all, batch_size: int,
+                 steps_per_epoch: int, augment: bool = True):
+    """`train_epochs` through the eager steps, one call a minibatch."""
+    return _two_epochs(model, model_cfg, x_all, y_all, batch_size,
+                       steps_per_epoch, augment, graphed=False)
 
 
 def device_name(device: torch.device) -> str:
@@ -125,19 +150,25 @@ def main(batch_size: int = 128, steps_per_epoch: int = 160,
     x_all = torch.from_numpy(ds.x).to(device)
     y_all = torch.from_numpy(ds.y).to(device)
     augment = os.environ.get("SPNET_BENCH_AUGMENT", "1") == "1"
-    _, losses, elapsed = train_epochs(model, mc, x_all, y_all, batch_size,
-                                      steps_per_epoch, augment)
-    final_loss = float(losses[-1])
-    assert np.isfinite(final_loss), final_loss
-    img_per_sec = batch_size * steps_per_epoch / elapsed
+    rates = {"graph": [], "eager": []}
+    for form in TURNS:
+        run = train_epochs if form == "graph" else eager_epochs
+        _, losses, elapsed = run(model, mc, x_all, y_all, batch_size,
+                                 steps_per_epoch, augment)
+        final_loss = float(losses[-1])
+        assert np.isfinite(final_loss), final_loss
+        rates[form].append(batch_size * steps_per_epoch / elapsed)
+    img_per_sec = statistics.mean(rates["graph"])
+    eager = statistics.mean(rates["eager"])
     size = f"{mc.input_size}x{mc.input_size}" if mc.input_size else \
         "512x384"
     return {
         "metric": "train_images_per_sec_per_chip",
         "value": round(img_per_sec, 2),
         "unit": f"img/s per {device_name(device)} ({mc.backbone} {size} "
-                f"b{batch_size} {mc.compute_dtype}, an epoch of eager steps "
-                "from the resident uint8 set, "
+                f"b{batch_size} {mc.compute_dtype}, the epoch form "
+                f"(one CUDA graph of the step on a card; eager steps "
+                f"{round(eager, 2)} img/s) from the resident uint8 set, "
                 + ("incl on-device augmentation)" if augment
                    else "augmentation off)"),
         "vs_baseline": round(img_per_sec / BASELINE_IMG_PER_SEC, 3),

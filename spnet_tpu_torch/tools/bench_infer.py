@@ -34,7 +34,7 @@ from spnet_tpu_torch.config import ORIG_IMG_HEIGHT, ORIG_IMG_WIDTH, GridSpec, \
     ModelConfig
 from spnet_tpu_torch.models.spnet import build_model
 from spnet_tpu_torch.tools.bench import device_name
-from spnet_tpu_torch.train.steps import make_predict_step
+from spnet_tpu_torch.train.steps import capture_stream, make_predict_step
 
 BASELINE_FPS = 725.0  # RTX 2080 Ti, BASELINE.md
 #: replays of the captured sweep: one warm, one timed
@@ -67,23 +67,6 @@ def pipelined(predict, x, batch_size: int):
             for s in range(0, x.shape[0], batch_size)]
     y = torch.cat([o.cpu() for o in outs]).float()
     return y, x.shape[0] / (time.perf_counter() - t0)
-
-
-#: one side stream a device for every capture: cuBLAS keeps a workspace
-#: (32 MiB + 1 MiB for cuBLASLt on an H100) for each stream that runs a
-#: matmul until the process ends, so a new stream a capture grows the
-#: card's memory by 33 MiB a sweep
-_CAPTURE_STREAMS: dict = {}
-
-
-def capture_stream(device: torch.device) -> torch.cuda.Stream:
-    """The side stream that `captured_sweep` captures on, one a device."""
-    key = torch.device(device).index
-    if key is None:
-        key = torch.cuda.current_device()
-    if key not in _CAPTURE_STREAMS:
-        _CAPTURE_STREAMS[key] = torch.cuda.Stream(key)
-    return _CAPTURE_STREAMS[key]
 
 
 def captured_sweep(predict, x, batch_size: int):

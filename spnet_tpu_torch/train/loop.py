@@ -18,8 +18,14 @@ feeds (`device_data`):
     sliced on the host and copied one batch ahead through pinned memory
     (`chunked.Stager`); the step takes the batch itself, and the val
     sweep copies the host val frames batch by batch;
-  * augmentation and dropout draw from a `torch.Generator` on the device,
-    seeded per epoch, so a resumed run draws what an unbroken one would;
+  * on one rank without remat the resident feed trains an epoch through
+    the step's epoch form (`train/steps.py::make_train_epoch`): on the
+    card one CUDA graph of the step, replayed once a minibatch, and one
+    host sync for the epoch's loss; the other feeds, remat and a process
+    group call the step once a minibatch;
+  * augmentation and dropout draw from one `torch.Generator` on the
+    device (the one a CUDA graph of the step holds), reseeded each epoch,
+    so a resumed run draws what an unbroken one would;
   * the 1-cycle schedule keys off the train state's step, and the epoch
     loss reaches the host once per epoch, not once per step;
   * `pretrained` (Keras backbone weights, `io/keras_import.py`) is
@@ -76,7 +82,8 @@ from spnet_tpu_torch.train.chunked import ChunkStreamer, Stager, \
     plan_chunks, run_chunked_epoch
 from spnet_tpu_torch.train.schedule import onecycle_schedule
 from spnet_tpu_torch.train.state import create_train_state, unfreeze
-from spnet_tpu_torch.train.steps import make_predict_step, make_train_step
+from spnet_tpu_torch.train.steps import make_predict_step, \
+    make_train_epoch, make_train_step
 
 #: Share of the card's memory the resident train + val frames and labels
 #: may take (and the chunked feed's chunks + val frames); the rest is left
@@ -315,6 +322,10 @@ def train_network(cfg: ExperimentConfig, train_ds: Dataset,
         augment=tc.augment, blur_prob=tc.blur_prob,
         indexed="epoch" if device_data else False, geo_augment=geo,
         grid=grid)
+    # the epoch form where the step is one rank's and has no remat region
+    train_epoch = (make_train_epoch(train_step, geo)
+                   if device_data is True and not mesh.active()
+                   and not mc.remat else None)
     predict_fn = make_predict_step(model)
     log = LossLog(log_dir) if main else None
     tb = TBWriter(f"{log_dir}/tb") if tc.use_tb and main else None
@@ -334,10 +345,10 @@ def train_network(cfg: ExperimentConfig, train_ds: Dataset,
             if frozen_left == 0:
                 state = unfreeze(state, adam_variant=tc.adam_variant)
 
+    gen = torch.Generator(device=device)
     for epoch in range(start_epoch, tc.epochs):
         t0 = time.perf_counter()
-        gen = torch.Generator(device=device).manual_seed(
-            tc.seed * 1_000_003 + epoch)
+        gen.manual_seed(tc.seed * 1_000_003 + epoch)
         if device_data == "chunked":
             loss_sum, nb = 0.0, 0
             for r in range(repeats):
@@ -351,15 +362,18 @@ def train_network(cfg: ExperimentConfig, train_ds: Dataset,
                                 repeats)
             if device_data:
                 idx_mat = torch.from_numpy(order).to(device)
-                feed_iter = ((*feed, idx) for idx in idx_mat)
+            if train_epoch is not None:
+                state, losses = train_epoch(state, *feed, idx_mat, gen)
             else:
-                feed_iter = stager.stream_rows(order)
-            losses = []
-            for batch in feed_iter:
-                state, metrics = train_step(state, *batch, gen)
-                losses.append(metrics["loss"])
+                feed_iter = (((*feed, idx) for idx in idx_mat) if device_data
+                             else stager.stream_rows(order))
+                losses = []
+                for batch in feed_iter:
+                    state, metrics = train_step(state, *batch, gen)
+                    losses.append(metrics["loss"])
+                losses = torch.stack(losses)
             nb = len(losses)
-            ep_loss = float(torch.stack(losses).mean())  # the one sync
+            ep_loss = float(losses.mean())  # the one sync
         train_time = time.perf_counter() - t0
         img_per_sec = nb * tc.batch_size / max(train_time, 1e-9)
 

@@ -18,12 +18,20 @@ plain functions over lists of float32 tensors, applied in place under
 `no_grad` with PyTorch's multi-tensor (`_foreach`) ops.  A parameter whose
 moments are None is frozen: its update is zero, as under optax's
 `multi_transform` + `set_to_zero`.
+
+The arithmetic reads no host number that changes from step to step, so a
+CUDA graph of the step replays it (`train/steps.py::make_train_epoch`):
+the count has a float32 mirror `t` on the parameters' device, which the
+update advances, and the bias corrections 1 - b^t are taken from it in
+float32, as optax takes them; the learning rate enters as a 0-d float32
+tensor (`*_adam_apply`).  `*_adam_update` evaluates schedule(count) on
+the host and applies that: one formulation for the eager and the graphed
+step.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import math
 from typing import Callable
 
 import torch
@@ -36,6 +44,7 @@ class AdamState:
     count: int  # updates applied since init
     mu: list  # first moments, None for a frozen parameter
     nu: list  # second moments, None for a frozen parameter
+    t: torch.Tensor  # count as a 0-d float32 on the parameters' device
 
 
 def adam_init(params, trainable=None) -> AdamState:
@@ -47,7 +56,14 @@ def adam_init(params, trainable=None) -> AdamState:
           for p, t in zip(params, trainable)]
     nu = [torch.zeros_like(p) if t else None
           for p, t in zip(params, trainable)]
-    return AdamState(0, mu, nu)
+    return AdamState(0, mu, nu, torch.zeros((), dtype=torch.float32,
+                                            device=params[0].device))
+
+
+def lr_tensor(lr: float, state: AdamState) -> torch.Tensor:
+    """The learning rate as the 0-d float32 tensor the updates take, on
+    the device of the state's count."""
+    return torch.full((), lr, dtype=torch.float32, device=state.t.device)
 
 
 def _live(params, grads, state):
@@ -63,43 +79,71 @@ def _moments(grads, mus, nus, b1, b2):
     torch._foreach_addcmul_(nus, grads, grads, value=1.0 - b2)
 
 
+def _advance(state: AdamState, b1: float, b2: float):
+    """t += 1 in place; returns the bias corrections (1 - b1^t, 1 - b2^t),
+    float32 on the device."""
+    state.t.add_(1.0)
+    return 1.0 - torch.pow(b1, state.t), 1.0 - torch.pow(b2, state.t)
+
+
 @torch.no_grad()
-def optax_adam_update(params, grads, state: AdamState,
-                      schedule: Callable[[int], float],
-                      b1: float = B1, b2: float = B2,
-                      eps: float = EPS) -> AdamState:
-    """optax.adam(schedule, eps=eps) applied in place to `params`."""
+def optax_adam_apply(params, grads, state: AdamState, lr: torch.Tensor,
+                     b1: float = B1, b2: float = B2,
+                     eps: float = EPS) -> AdamState:
+    """optax.adam's update with learning rate `lr` (0-d float32 on the
+    device), in place on `params`."""
     ps, gs, mus, nus = _live(params, grads, state)
-    lr = schedule(state.count)
-    count = state.count + 1
+    bc1, bc2 = _advance(state, b1, b2)
     if ps:
         _moments(gs, mus, nus, b1, b2)
-        denom = torch._foreach_div(nus, 1.0 - b2 ** count)
+        denom = torch._foreach_div(nus, bc2)
         torch._foreach_sqrt_(denom)
         torch._foreach_add_(denom, eps)
-        upd = torch._foreach_div(mus, 1.0 - b1 ** count)
+        upd = torch._foreach_div(mus, bc1)
         torch._foreach_div_(upd, denom)
-        torch._foreach_add_(ps, upd, alpha=-lr)
-    return AdamState(count, state.mu, state.nu)
+        torch._foreach_mul_(upd, lr)
+        torch._foreach_sub_(ps, upd)
+    return dataclasses.replace(state, count=state.count + 1)
 
 
 @torch.no_grad()
-def keras_adam_update(params, grads, state: AdamState,
-                      schedule: Callable[[int], float],
-                      b1: float = B1, b2: float = B2,
-                      eps: float = EPS) -> AdamState:
-    """tf.keras Adam (`spnet_tpu.train.optim.keras_adam`) in place."""
+def keras_adam_apply(params, grads, state: AdamState, lr: torch.Tensor,
+                     b1: float = B1, b2: float = B2,
+                     eps: float = EPS) -> AdamState:
+    """tf.keras Adam (`spnet_tpu.train.optim.keras_adam`) with learning
+    rate `lr`, in place: lr_t = lr * sqrt(1 - b2^t) / (1 - b1^t) in
+    float32 on the device."""
     ps, gs, mus, nus = _live(params, grads, state)
-    lr = schedule(state.count)
-    count = state.count + 1
-    lr_t = lr * math.sqrt(1.0 - b2 ** count) / (1.0 - b1 ** count)
+    bc1, bc2 = _advance(state, b1, b2)
+    lr_t = lr * torch.sqrt(bc2) / bc1
     if ps:
         _moments(gs, mus, nus, b1, b2)
         denom = torch._foreach_sqrt(nus)
         torch._foreach_add_(denom, eps)
         upd = torch._foreach_div(mus, denom)
-        torch._foreach_add_(ps, upd, alpha=-lr_t)
-    return AdamState(count, state.mu, state.nu)
+        torch._foreach_mul_(upd, lr_t)
+        torch._foreach_sub_(ps, upd)
+    return dataclasses.replace(state, count=state.count + 1)
 
 
-ADAM_UPDATES = {"optax": optax_adam_update, "keras": keras_adam_update}
+def optax_adam_update(params, grads, state: AdamState,
+                      schedule: Callable[[int], float],
+                      b1: float = B1, b2: float = B2,
+                      eps: float = EPS) -> AdamState:
+    """optax.adam(schedule, eps=eps) applied in place to `params`."""
+    return optax_adam_apply(params, grads, state,
+                            lr_tensor(schedule(state.count), state),
+                            b1, b2, eps)
+
+
+def keras_adam_update(params, grads, state: AdamState,
+                      schedule: Callable[[int], float],
+                      b1: float = B1, b2: float = B2,
+                      eps: float = EPS) -> AdamState:
+    """tf.keras Adam under `schedule` in place."""
+    return keras_adam_apply(params, grads, state,
+                            lr_tensor(schedule(state.count), state),
+                            b1, b2, eps)
+
+
+ADAM_APPLIES = {"optax": optax_adam_apply, "keras": keras_adam_apply}

@@ -4,8 +4,10 @@ Counterpart of `spnet_tpu/train/schedule.py` (which imports jax.numpy):
 linear warmup over the first 30% of iterations from lr_max/div_factor to
 lr_max, then cosine annealing down to lr_start/final_div, then held
 there.  The schedule is a function of the step counter that the host
-evaluates (a Python float), so the optimizer passes the learning rate to
-the device as a scalar argument and never waits for the card.
+evaluates (a Python float), so the optimizer hands the learning rate to
+the device as a scalar and never waits for the card; an epoch run from a
+CUDA graph reads its rates from `schedule_table`, evaluated on the host
+once an epoch, by a row counter on the device.
 """
 
 from __future__ import annotations
@@ -56,3 +58,9 @@ def onecycle_lut(lr_max: float, n_data_points: int, epochs: int,
     second = (lr_max - lr_end) * (1 + np.cos(np.linspace(0, np.pi, a2))) / 2 \
         + lr_end
     return np.concatenate([first, second])
+
+
+def schedule_table(sched, start: int, steps: int) -> np.ndarray:
+    """(steps,) float32: sched(start + i) for i < steps, the rates an
+    epoch's updates apply when its first update has count `start`."""
+    return np.array([sched(start + i) for i in range(steps)], np.float32)

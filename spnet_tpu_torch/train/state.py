@@ -16,9 +16,11 @@ import dataclasses
 import os
 from typing import Callable
 
+import torch
 from torch import nn
 
-from spnet_tpu_torch.train.optim import ADAM_UPDATES, AdamState, adam_init
+from spnet_tpu_torch.train.optim import ADAM_APPLIES, AdamState, \
+    adam_init, lr_tensor
 
 
 def backbone_freeze_labels(model: nn.Module, layer_order, freeze_fac: float
@@ -50,11 +52,15 @@ class Optimizer:
         names, params = zip(*model.named_parameters())
         return adam_init(list(params), [n not in self.frozen for n in names])
 
-    def update(self, params, grads, state: AdamState) -> AdamState:
+    def update(self, params, grads, state: AdamState,
+               lr: torch.Tensor | None = None) -> AdamState:
         """Apply one update in place; params and grads in
-        `model.parameters()` order."""
-        return ADAM_UPDATES[self.variant](params, grads, state,
-                                          self.schedule)
+        `model.parameters()` order.  lr: the learning rate as a 0-d
+        float32 tensor on the device; None evaluates schedule(count) on
+        the host."""
+        if lr is None:
+            lr = lr_tensor(self.schedule(state.count), state)
+        return ADAM_APPLIES[self.variant](params, grads, state, lr)
 
 
 def make_optimizer(schedule: Callable[[int], float], model: nn.Module,
@@ -64,9 +70,9 @@ def make_optimizer(schedule: Callable[[int], float], model: nn.Module,
     with eps 1e-7, the JAX package's default); 'keras' is tf.keras Adam."""
     if adam_variant is None:
         adam_variant = os.environ.get("SPNET_ADAM", "optax")
-    if adam_variant not in ADAM_UPDATES:
+    if adam_variant not in ADAM_APPLIES:
         raise ValueError(f"adam_variant must be one of "
-                         f"{sorted(ADAM_UPDATES)}, got {adam_variant!r}")
+                         f"{sorted(ADAM_APPLIES)}, got {adam_variant!r}")
     frozen = frozenset()
     if freeze_fac > 0.0:
         labels = backbone_freeze_labels(model, layer_order, freeze_fac)
@@ -83,10 +89,24 @@ class TrainState:
     optimizer: Optimizer
     opt_state: AdamState
     step: int = 0
+    #: (the epoch's learning rates (steps,) float32, the row counter
+    #: (1,) int64 that picks this step's), both on the device; set only
+    #: while `make_train_epoch` runs an epoch
+    lr_feed: tuple | None = None
 
     @property
     def schedule(self) -> Callable[[int], float]:
         return self.optimizer.schedule
+
+    def step_lr(self) -> torch.Tensor | None:
+        """The learning rate of the step being taken, 0-d float32 read
+        from `lr_feed` by its row counter on the device; None without a
+        feed (the optimizer then evaluates schedule(count) on the
+        host)."""
+        if self.lr_feed is None:
+            return None
+        table, row = self.lr_feed
+        return table.index_select(0, row).view(())
 
     def opt_state_dict(self) -> dict:
         """The optimizer state for a checkpoint: variant, count, frozen
@@ -121,6 +141,7 @@ class TrainState:
                 self.opt_state.mu[i].copy_(saved["mu"][n])
                 self.opt_state.nu[i].copy_(saved["nu"][n])
         self.opt_state.count = int(saved["count"])
+        self.opt_state.t.fill_(self.opt_state.count)
         return True
 
 

@@ -9,16 +9,22 @@ re-encodes its labels from the remapped ellipse rows, augments it
 in train mode (batch-stat BatchNorm, dropout), the loss (the fused kernels
 K2/K3, which on the 'ss' head also apply its selective sigmoid K4) plus the
 L2 penalty, the backward pass, and one Adam update under the 1-cycle
-schedule.  PyTorch runs eagerly, so where JAX
-compiles a whole epoch into one program, the port runs one step per
-minibatch from a Python loop (`train/loop.py`).  In a process group the
-step is data-parallel (`DistributedDataParallel`, `make_train_step`).
+schedule.  Where JAX compiles a whole epoch into one `lax.scan` program,
+the port's epoch form (`make_train_epoch`, JAX's `train_epoch` /
+`train_epoch_geo`) captures the step once as a CUDA graph and replays it
+once per row of the epoch's index matrix; on the CPU the same step runs
+once per row from Python.  `train/loop.py` trains the resident feed
+through it on one rank; the host-fed and chunked feeds, remat and a
+process group (where the step is data-parallel,
+`DistributedDataParallel`) call the step once per minibatch.
 
 L2 regularization: an explicit penalty over the conv and dense kernels in
 scope, added to the loss, as in the JAX package.
 """
 
 from __future__ import annotations
+
+import time
 
 import torch
 import torch.distributed as dist
@@ -32,6 +38,7 @@ from spnet_tpu_torch.ops.losses import loss_components, spnet_loss, \
     spnet_loss_fused
 from spnet_tpu_torch.config import GridSpec, LossWeights
 from spnet_tpu_torch.parallel import mesh
+from spnet_tpu_torch.train.schedule import schedule_table
 from spnet_tpu_torch.utils.profiling import annotate
 
 
@@ -128,7 +135,10 @@ def make_train_step(model: nn.Module,
     through the fused kernels (`spnet_loss_fused`).  The step updates
     `state` in place (parameters, BN statistics, optimizer state, step)
     and returns it; metrics hold 'loss' and 'data_loss' as device scalars
-    (no host sync) and 'lr', the schedule at the step it ran.
+    (no host sync) and 'lr', the schedule at the step it ran.  The update's
+    learning rate is schedule(count), evaluated on the host, or, while
+    `make_train_epoch` runs an epoch, read on the device from the epoch's
+    table (`TrainState.lr_feed`).
 
     With `geo_augment=True` (requires `grid`) the step takes the padded
     raw rows (N, S, 6) and their mask (N, S) after `y_all`:
@@ -195,7 +205,8 @@ def make_train_step(model: nn.Module,
         m.zero_grad(set_to_none=True)
         lr = state.schedule(state.step)
         state.opt_state = state.optimizer.update(params, grads,
-                                                 state.opt_state)
+                                                 state.opt_state,
+                                                 state.step_lr())
         state.step += 1
         loss, data_loss = loss.detach(), data_loss.detach()
         if n_ranks > 1:  # the logged losses: the global batch's
@@ -235,6 +246,150 @@ def make_train_step(model: nn.Module,
         return step(state, x_all[idx], y_all[idx], generator)
 
     return train_step
+
+
+#: one side stream a device for every capture: cuBLAS keeps a workspace
+#: (32 MiB + 1 MiB for cuBLASLt on an H100) for each stream that runs a
+#: matmul until the process ends, so a new stream a capture would grow the
+#: card's memory by 33 MiB a capture
+_CAPTURE_STREAMS: dict = {}
+
+
+def capture_stream(device: torch.device) -> torch.cuda.Stream:
+    """The side stream that CUDA graphs are captured on, one a device
+    (`make_train_epoch`, `tools/bench_infer.py::captured_sweep`)."""
+    key = torch.device(device).index
+    if key is None:
+        key = torch.cuda.current_device()
+    if key not in _CAPTURE_STREAMS:
+        _CAPTURE_STREAMS[key] = torch.cuda.Stream(key)
+    return _CAPTURE_STREAMS[key]
+
+
+#: eager steps on the capturing stream before the step is captured: the
+#: first makes what a step makes once (the loss kernel's workspace for the
+#: stream, cuBLAS's, the cached device constants of the augmentation and
+#: the label encoder), the second runs as every later step does
+WARMUP_STEPS = 2
+
+
+def make_train_epoch(train_step, geo_augment: bool = False):
+    """The epoch form of a resident-feed step made by
+    `make_train_step(indexed="epoch")` on one rank, JAX's `train_epoch` /
+    `train_epoch_geo`:
+
+        train_epoch(state, x_all, y_all, idx_mat, generator)
+            -> (state, losses)
+        train_epoch_geo(state, x_all, y_all, rows_all, mask_all, idx_mat,
+                        generator) -> (state, losses)
+
+    idx_mat (steps, b) int64 on the data's device holds one minibatch a
+    row, trained in order; losses is the (steps,) float32 device tensor of
+    the steps' losses (the scan's stacked losses), with no host sync.  The
+    epoch's learning rates, sched(count + i), are evaluated on the host
+    once (`schedule_table`) and a row counter on the device picks each
+    step's minibatch row and rate (`TrainState.lr_feed`), so every step
+    reads the same buffers.
+
+    On a CUDA device the step is captured once as a CUDA graph and then
+    replayed once a row: WARMUP_STEPS eager steps on the capturing stream
+    (`capture_stream`) come first, in the first epoch(s), then the capture,
+    with `generator` registered with the graph, so that each replay draws
+    the augmentation and dropout an eager step would draw.  The graph
+    serves later epochs (reseed the same generator between them) and is
+    captured again when the model, the optimizer's moments (`unfreeze`),
+    the data, the generator or the batch size change, or an epoch has more
+    rows than the graph's buffers.  A failed capture or replay raises.  On
+    the CPU the same step runs once a row from Python.  The returned
+    function's `capture_seconds` lists the host seconds of each capture."""
+    cache: dict = {}
+    capture_seconds: list = []
+
+    def buffers(state, data, generator, steps: int, b: int, device):
+        """The epoch's buffers, made anew (dropping the graph) when the
+        capture's inputs changed."""
+        key = (state.model, state.opt_state.mu, generator, *data)
+        old = cache.get("key", ())
+        if len(old) != len(key) or any(a is not k for a, k in zip(old, key)) \
+                or cache["idx"].shape[0] < steps or cache["idx"].shape[1] != b:
+            cache.clear()  # the old graph's memory goes back first
+            cache.update(
+                key=key, graph=None, warm=0,
+                idx=torch.empty((steps, b), dtype=torch.int64,
+                                device=device),
+                lr=torch.empty(steps, dtype=torch.float32, device=device),
+                row=torch.zeros(1, dtype=torch.int64, device=device),
+                loss=torch.zeros(steps, dtype=torch.float32, device=device))
+        return cache
+
+    def replay(body, steps: int, generator, device) -> None:
+        row = 0
+        if cache["graph"] is None:
+            stream = capture_stream(device)
+            current = torch.cuda.current_stream(device)
+            stream.wait_stream(current)
+            with torch.cuda.stream(stream):
+                while cache["warm"] < WARMUP_STEPS and row < steps:
+                    body()
+                    row += 1
+                    cache["warm"] += 1
+                if row < steps:
+                    t0 = time.perf_counter()
+                    graph = torch.cuda.CUDAGraph()
+                    if generator is not None:  # a step that draws nothing
+                        graph.register_generator_state(generator)
+                    with torch.cuda.graph(graph, stream=stream):
+                        body()
+                    cache["graph"] = graph
+                    capture_seconds.append(time.perf_counter() - t0)
+            current.wait_stream(stream)
+        for _ in range(row, steps):
+            cache["graph"].replay()
+
+    def run(state, data, idx_mat, generator):
+        steps, b = idx_mat.shape
+        device = idx_mat.device
+        step0, count0 = state.step, state.opt_state.count
+        buf = buffers(state, data, generator, steps, b, device)
+        buf["idx"][:steps].copy_(idx_mat)
+        buf["lr"][:steps].copy_(torch.from_numpy(
+            schedule_table(state.schedule, count0, steps)))
+        buf["row"].zero_()
+
+        def body():
+            idx = buf["idx"].index_select(0, buf["row"]).view(b)
+            _, metrics = train_step(state, *data, idx, generator)
+            buf["loss"].index_copy_(0, buf["row"], metrics["loss"].view(1))
+            buf["row"].add_(1)
+
+        state.lr_feed = (buf["lr"], buf["row"])
+        try:
+            if device.type == "cuda":
+                replay(body, steps, generator, device)
+            else:
+                for _ in range(steps):
+                    body()
+        finally:
+            state.lr_feed = None
+        # the host ints: a capture ran the step's host side once more,
+        # and a replay runs none of it
+        state.step, state.opt_state.count = step0 + steps, count0 + steps
+        return state, buf["loss"][:steps].clone()
+
+    if geo_augment:
+        def train_epoch_geo(state, x_all, y_all, rows_all, mask_all,
+                            idx_mat, generator):
+            return run(state, (x_all, y_all, rows_all, mask_all), idx_mat,
+                       generator)
+
+        train_epoch_geo.capture_seconds = capture_seconds
+        return train_epoch_geo
+
+    def train_epoch(state, x_all, y_all, idx_mat, generator):
+        return run(state, (x_all, y_all), idx_mat, generator)
+
+    train_epoch.capture_seconds = capture_seconds
+    return train_epoch
 
 
 def make_eval_step(model: nn.Module,
