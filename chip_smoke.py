@@ -243,6 +243,17 @@ check raises and the run exits non-zero:
                run added (the graph's private pool); then train images/s
                both ways in turns (graph, eager, eager, graph; 32 steps an
                epoch at b=16, 16 at b=128).
+  21. dataset_d - the Dataset-D tools through their `main`, at a small
+               depth and full width, in a temporary directory:
+               `dataset_d_prep 48 16 4` (gen-fake-espi's native PNG frames,
+               the train split inflated 4x by `augment`: the file names
+               those of augment's own draws, no kernel launched), then
+               `dataset_d 48 1 --arm offline` (the inflation reused
+               through its marker) and `--arm onthefly --rep R` (R = the
+               offline frames // 48): both on the resident feed's epoch
+               form, each run's K1-K3 launches, finite results, images
+               seen, images/s and stage seconds; then `eval_blur_split` (64
+               frames a set) on a checkpoint of the offline arm's state.
 
 Every model path runs with all five launch counts (and the loss kernel's
 count of 'ss' launches) set to 0 just before it and checks them all just
@@ -255,7 +266,8 @@ those of phase 16, `bench_launches` and `native_launches` those of phases
 17 and 18; K1 adds its native b=16 batch's `native_ms`, `native_plain_ms`,
 `native_bound_ms` and `native_library_ms`; K1-K3 add
 `validation_launches`, each tool's count in phase 19; K2-K3 add
-`epoch_launches`, phase 20's graphed runs, and K2 `epoch_ss_launches`);
+`epoch_launches`, phase 20's graphed runs, and K2 `epoch_ss_launches`;
+K1-K3 add `dataset_d_launches`, phase 21's runs);
 the last line is
 `{"ok": true, "device": {...}}`.  Exits
 non-zero without a result when no CUDA device is available.  Needs torch
@@ -3176,7 +3188,8 @@ VALIDATION_TTA_FRAMES = 4992  # eval_tta's val set (the tool's own)
 VALIDATION_MOVIE = 512      # movie_predict's frames, at MOVIE_BATCH
 
 
-def _tool(name: str, fn, argv, want: dict, smi: str):
+def _tool(name: str, fn, argv, want: dict, smi: str,
+          tag: str = "validation"):
     """One validation tool's `main(argv)` with its stdout kept, and the
     launch counts set to 0 just before it and checked against `want`
     just after.  Returns (its result, its counts, its stdout)."""
@@ -3196,10 +3209,10 @@ def _tool(name: str, fn, argv, want: dict, smi: str):
     counts = _counts()
     mem = [line for line in buf.getvalue().splitlines()
            if line.startswith("[memory]")]
-    print(f"[validation] {name} {' '.join(argv)}: {seconds:.1f} s; "
+    print(f"[{tag}] {name} {' '.join(argv)}: {seconds:.1f} s; "
           f"launches {counts}; {' | '.join(mem)}  [{smi}]")
     if counts != want:
-        fail(f"validation {name}: launches {counts} != {want}")
+        fail(f"{tag} {name}: launches {counts} != {want}")
     return out, counts, buf.getvalue()
 
 
@@ -3493,6 +3506,202 @@ def phase_epoch(seed: int, smi: str) -> dict:
     return res
 
 
+DATASET_D_ARGV = ["48", "1"]  # phase 21: n_train, epochs_offline
+DATASET_D_VAL = 16            # ... its N_VAL
+DATASET_D_AUGS = 4            # ... its N_AUGS
+BLUR_SPLIT_FRAMES = 64        # eval_blur_split's n_val on its checkpoint
+
+
+def _inflated_names(train_dir: str, n_augs: int) -> set:
+    """The PNG names `augment -n n_augs` leaves in a copy of train_dir:
+    the originals and every variant's name from the tool's draws (one
+    `default_rng(0)` for the directory, files in sorted order)."""
+    from spnet_tpu_torch.cli.augment_preproc import draw_variant, \
+        variant_suffix
+    from spnet_tpu_torch.data.csvio import paired_file_lists
+
+    imgs, _ = paired_file_lists(train_dir + os.sep)
+    rng = np.random.default_rng(0)
+    names = set()
+    for im in imgs:
+        stem = os.path.splitext(os.path.basename(im))[0]
+        names.add(stem + ".png")
+        names.update(stem + variant_suffix(*draw_variant(rng)) + ".png"
+                     for _ in range(n_augs))
+    return names
+
+
+def _stages(text: str) -> dict:
+    lines = [json.loads(l.split(" ", 1)[1]) for l in text.splitlines()
+             if l.startswith("DATASET_D_STAGES ")]
+    if len(lines) != 1:
+        fail(f"dataset_d: {len(lines)} DATASET_D_STAGES lines")
+    return lines[0]
+
+
+def phase_dataset_d(seed: int, smi: str) -> dict:
+    """Phase 21: the Dataset-D experiment (`tools/dataset_d.py`) as a user
+    runs it, at a small depth and full width (Xception-331 bf16, b=16), in
+    a temporary directory: `dataset_d 48 1 --arm offline` (gen-fake-espi's
+    48 + 16 native PNG frames, the train split inflated 4x by `augment`,
+    loaded back through `build_dataset`), then `--arm onthefly --rep R`
+    with R the offline set's frames // 48, then `eval_blur_split` on a
+    checkpoint of the offline arm's state.  Checks the inflated file
+    names and count, that both arms took the resident feed and the epoch
+    form, each run's K1-K3 launches, finite results; prints both arms'
+    images/s and stage seconds.  `seed` is unused: the tools seed
+    themselves."""
+    from spnet_tpu_torch.config import ModelConfig
+    from spnet_tpu_torch.io.checkpoint import save_train_state
+    from spnet_tpu_torch.tools import dataset_d, eval_blur_split
+    import spnet_tpu_torch.train.loop as loop
+
+    del seed
+    t0 = time.perf_counter()
+    mc = ModelConfig()
+    if (mc.backbone, mc.input_size) != (dataset_d.BACKBONE,
+                                        dataset_d.INPUT_SIZE):
+        fail("dataset_d: the recipe is no longer Xception-331")
+    n_train, epochs = (int(a) for a in DATASET_D_ARGV)
+    b = dataset_d.BATCH
+    val_batches = -(-DATASET_D_VAL // max(b, min(VAL_BATCH, DATASET_D_VAL)))
+    blur_batches = -(-BLUR_SPLIT_FRAMES // max(b, min(VAL_BATCH,
+                                                      BLUR_SPLIT_FRAMES)))
+    consts = {"N_VAL": DATASET_D_VAL, "N_AUGS": DATASET_D_AUGS}
+    saved = {k: getattr(dataset_d, k) for k in consts}
+    hooks = {"pick": loop._pick_feed, "epoch": loop.make_train_epoch,
+             "train": dataset_d.train_network}
+    env = {"SPNET_DEVICE": os.environ.get("SPNET_DEVICE")}
+    seen = {"feeds": [], "epoch_forms": [], "states": []}
+
+    def pick(*a, **k):
+        seen["feeds"].append(hooks["pick"](*a, **k))
+        return seen["feeds"][-1]
+
+    def make_epoch(*a, **k):
+        seen["epoch_forms"].append(hooks["epoch"](*a, **k))
+        return seen["epoch_forms"][-1]
+
+    def train(cfg, *a, **k):
+        state, history = hooks["train"](cfg, *a, **k)
+        seen["states"].append((state, cfg))
+        return state, history
+
+    cwd = os.getcwd()
+    res = {"counts": {}}
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            os.environ["SPNET_DEVICE"] = DEVICE  # the tools' default
+            for k, v in consts.items():
+                setattr(dataset_d, k, v)
+            loop._pick_feed, loop.make_train_epoch = pick, make_epoch
+            dataset_d.train_network = train
+            os.chdir(tmp)
+            wd = dataset_d.workdir(DEVICE)
+
+            # the offline arm: the frames and the inflation first, so the
+            # inflated set's size (and with it the steps) is known when the
+            # counts are checked; the tool reuses both through the marker
+            from spnet_tpu_torch.tools import dataset_d_prep
+            _zero_counts()
+            t1 = time.perf_counter()
+            dataset_d_prep.main([str(n_train), str(DATASET_D_VAL),
+                                 str(DATASET_D_AUGS)])
+            prep_s = time.perf_counter() - t1
+            if _counts() != _want_counts(mc):
+                fail(f"dataset_d_prep launched a kernel: {_counts()}")
+            names = {f for f in os.listdir(f"{wd}/TrainAug")
+                     if f.endswith(".png")}
+            want_names = _inflated_names(f"{wd}/Train", DATASET_D_AUGS)
+            written = n_train * (DATASET_D_AUGS + 1)
+            print(f"[dataset_d] dataset_d_prep {n_train} {DATASET_D_VAL} "
+                  f"{DATASET_D_AUGS}: {prep_s:.1f} s; TrainAug holds {len(names)} PNG files of"
+                  f" {written} written ({written - len(names)} share a "
+                  f"name)  [{smi}]")
+            if names != want_names:
+                fail(f"dataset_d: inflated names differ from augment's "
+                     f"draws: {sorted(names ^ want_names)[:6]}")
+            frames = len(names) // b * b
+            steps = frames // b
+            out, res["counts"]["offline"], text = _tool(
+                "dataset_d", dataset_d.main, [*DATASET_D_ARGV, "--arm",
+                                              "offline"],
+                _want_counts(mc, predict_batches=(val_batches + 1)
+                             * epochs + val_batches + 1,
+                             train_steps=_epoch_calls(epochs * steps)),
+                smi, tag="dataset_d")
+            off = _stages(text)
+            if "(reusing completed inflation:" not in text:
+                fail("dataset_d: the tool did not reuse the inflation")
+            if (off["inflated_files"], off["frames"]) != (len(names),
+                                                          frames):
+                fail(f"dataset_d: stages {off} != {len(names)} files, "
+                     f"{frames} frames")
+            rep = frames // n_train
+            out2, res["counts"]["onthefly"], text = _tool(
+                "dataset_d", dataset_d.main, [*DATASET_D_ARGV, "--arm",
+                                              "onthefly", "--rep",
+                                              str(rep)],
+                _want_counts(mc, predict_batches=(val_batches + 1)
+                             * epochs + val_batches + 1,
+                             train_steps=_epoch_calls(
+                                 epochs * rep * (n_train // b))),
+                smi, tag="dataset_d")
+            fly = _stages(text)
+            if (seen["feeds"] != [True, True]
+                    or len(seen["epoch_forms"]) != 2
+                    or None in seen["epoch_forms"]):
+                fail(f"dataset_d: feeds {seen['feeds']}, epoch forms "
+                     f"{seen['epoch_forms']}: not the resident feed's "
+                     f"epoch form")
+            r_off, r_fly = out["offline"], out2["onthefly"]
+            for r in (r_off, r_fly):
+                if not all(np.isfinite(r[k]) for k in (
+                        "ring_acc", "class_acc", "mAP", "pix_err")):
+                    fail(f"dataset_d: result {r}")
+            if (r_off["imgs_seen"], r_fly["imgs_seen"]) != (
+                    epochs * frames, epochs * rep * n_train):
+                fail(f"dataset_d: images seen {r_off['imgs_seen']}, "
+                     f"{r_fly['imgs_seen']}")
+            for arm, st in (("offline", off), ("onthefly", fly)):
+                secs = {k: v for k, v in st.items()
+                        if k.endswith("_s") and v is not None}
+                print(f"[dataset_d] {arm}: {st['frames']} frames, images/s "
+                      f"{st['img_per_sec']}; stage seconds {secs}  [{smi}]")
+            res.update(offline=r_off, onthefly=r_fly,
+                       img_per_sec={"offline": off["img_per_sec"],
+                                    "onthefly": fly["img_per_sec"]})
+
+            state, cfg = seen["states"][0]
+            save_train_state("ck", state, cfg)
+            lines, res["counts"]["blur_split"], _ = _tool(
+                "eval_blur_split", eval_blur_split.main,
+                ["ck", str(BLUR_SPLIT_FRAMES)],
+                _want_counts(mc, predict_batches=2 * (blur_batches + 1)),
+                smi, tag="dataset_d")
+            print(f"[dataset_d] BLUR_SPLIT {json.dumps(lines)}  [{smi}]")
+            if [l["val"] for l in lines] != ["blurred(30%)", "blur-free"] \
+                    or not all(np.isfinite(l[k]) for l in lines for k in (
+                        "ring_acc", "class_acc", "mean_pix_err")):
+                fail(f"eval_blur_split: {lines}")
+        finally:
+            os.chdir(cwd)
+            loop._pick_feed, loop.make_train_epoch = (hooks["pick"],
+                                                      hooks["epoch"])
+            dataset_d.train_network = hooks["train"]
+            for k, v in saved.items():
+                setattr(dataset_d, k, v)
+            for k, v in env.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+    torch.cuda.empty_cache()
+    res["seconds"] = time.perf_counter() - t0
+    print(f"[dataset_d] phase 21 took {res['seconds']:.1f} s")
+    return res
+
+
 def _late_launches(name: str, feeds: dict, remat: dict, pre: dict) -> dict:
     """A loss kernel's launches on the paths of phases 11, 12 and 14."""
     return dict(feeds_launches={f: feeds[f]["counts"][name] for f in FEEDS},
@@ -3544,6 +3753,7 @@ def main(argv=None):
     native = phase_native(args.seed, smi)
     validation = phase_validation(args.seed, smi)
     epoch = phase_epoch(args.seed, smi)
+    dsd = phase_dataset_d(args.seed, smi)
     print(f"[done] {time.perf_counter() - t0:.1f} s after the device phase; "
           f"train {train['img_per_sec']:.1f} images/s at b={TRAIN_BATCH}; "
           f"zoo train images/s "
@@ -3578,6 +3788,10 @@ def main(argv=None):
     def validation_launches(name):
         # phase 19: each validation tool's run
         return {t: c[name] for t, c in validation["counts"].items()}
+
+    def dataset_d_launches(name):
+        # phase 21: each Dataset-D arm's run and the blur split
+        return {t: c[name] for t, c in dsd["counts"].items()}
 
     def epoch_launches(name):
         # phase 20: the graphed epoch form's 8-step runs (warm-up steps and
@@ -3651,6 +3865,7 @@ def main(argv=None):
         "native_bound_ms": native["kern"]["sums"][16]["bound_ms"],
         "native_library_ms": native["kern"]["sums"][16]["library_ms"],
         "validation_launches": validation_launches("sepconv_infer"),
+        "dataset_d_launches": dataset_d_launches("sepconv_infer"),
     },
         # the loss alone; the train step's forward also writes the
         # gradient (fused_ms, fused_bound_ms)
@@ -3675,6 +3890,7 @@ def main(argv=None):
               native_launches=native_launches("spnet_loss_fwd"),
               validation_launches=validation_launches("spnet_loss_fwd"),
               epoch_launches=epoch_launches("spnet_loss_fwd"),
+              dataset_d_launches=dataset_d_launches("spnet_loss_fwd"),
               epoch_ss_launches=epoch["ss"]["counts"][SS_COUNT],
               **_late_launches("spnet_loss_fwd", feeds, remat, pre)),
         # g * dloss/dy_pred from y_true, y_pred and g; the train step's
@@ -3693,6 +3909,7 @@ def main(argv=None):
               native_launches=native_launches("spnet_loss_bwd"),
               validation_launches=validation_launches("spnet_loss_bwd"),
               epoch_launches=epoch_launches("spnet_loss_bwd"),
+              dataset_d_launches=dataset_d_launches("spnet_loss_bwd"),
               **_late_launches("spnet_loss_bwd", feeds, remat, pre)),
         small("selective_sigmoid_fwd", k4_src, k4_at,
               heads["ss"]["predict_counts"]["selective_sigmoid_fwd"],

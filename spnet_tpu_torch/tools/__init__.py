@@ -1,4 +1,6 @@
 """Measurement tools for the port's kernels and benchmarks (run on a CUDA
 host), and the accuracy-validation tools of the JAX package's scripts
 (`dataset_a`, `sanity_train`, `eval_breakdown`, `eval_tta`,
-`movie_predict`; on the card unless asked for the CPU)."""
+`movie_predict`, the Dataset-D experiment `dataset_d` with its data
+stages `dataset_d_prep` and `dataset_d_inflate`, and `eval_blur_split`;
+on the card unless asked for the CPU)."""

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import argparse
 import os
+import subprocess
 
 import torch
 
@@ -61,3 +62,25 @@ def memory(tag: str, device: torch.device) -> dict | None:
           f"GiB, max_memory_allocated {out['max_allocated_gib']:.4f} GiB",
           flush=True)
     return out
+
+
+def card(device: torch.device) -> str | None:
+    """Print and return the card's name and power limit as `nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader` gives them (a
+    card below its maximum power runs slower under load); None on the
+    CPU."""
+    if device.type != "cuda":
+        return None
+    index = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    try:
+        line = subprocess.run(
+            ["nvidia-smi", f"--id={index}", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60).stdout.strip()
+    except (OSError, subprocess.SubprocessError):
+        line = ""
+    line = line or f"{torch.cuda.get_device_name(device)}, power limit " \
+        "not read"
+    print(f"[card] {line}", flush=True)
+    return line
