@@ -254,6 +254,17 @@ check raises and the run exits non-zero:
                form, each run's K1-K3 launches, finite results, images
                seen, images/s and stage seconds; then `eval_blur_split` (64
                frames a set) on a checkpoint of the offline arm's state.
+  22. refgen - the reference generator's frames and their training run
+               through the tools' `main`, at a small depth and full width,
+               in a temporary directory: 2 shards of 64 frames at 331
+               drawn serially and over the pool of `os.cpu_count()`
+               workers (bitwise equal), a rerun that skips both, a shard
+               of altered versions refused; `refgen_run 1 32 1e-4 bfloat16
+               331` on 96 + 32 of them (the resident feed's epoch form,
+               its K1-K3 launches, finite results), then `eval_breakdown
+               <ckpt> refgen` and `eval_tta <ckpt> refgen h` on its
+               checkpoint, each with its K1 launches; frames/s serial and
+               pooled, and the stage seconds.
 
 Every model path runs with all five launch counts (and the loss kernel's
 count of 'ss' launches) set to 0 just before it and checks them all just
@@ -267,7 +278,8 @@ those of phase 16, `bench_launches` and `native_launches` those of phases
 `native_bound_ms` and `native_library_ms`; K1-K3 add
 `validation_launches`, each tool's count in phase 19; K2-K3 add
 `epoch_launches`, phase 20's graphed runs, and K2 `epoch_ss_launches`;
-K1-K3 add `dataset_d_launches`, phase 21's runs);
+K1-K3 add `dataset_d_launches`, phase 21's runs, and `refgen_launches`,
+phase 22's);
 the last line is
 `{"ok": true, "device": {...}}`.  Exits
 non-zero without a result when no CUDA device is available.  Needs torch
@@ -3702,6 +3714,204 @@ def phase_dataset_d(seed: int, smi: str) -> dict:
     return res
 
 
+REFGEN_SHARD = 64             # phase 22: frames a shard, two shards
+REFGEN_SIZE = 331
+REFGEN_SPLIT = (96, 32)       # ... refgen_run's N_TRAIN, N_VAL
+REFGEN_ARGV = ["1", "32", "1e-4", "bfloat16", str(REFGEN_SIZE)]
+REFGEN_TTA_MODES = "h"
+
+
+def _shard_arrays(path: str) -> dict:
+    with np.load(path, allow_pickle=False) as z:
+        return {k: z[k] for k in z.files}
+
+
+def _refgen_frames(smi: str) -> dict:
+    """Phase 22's shards, in the current directory: drawn serially into
+    serial/, then through `refgen_dataset.main` over its pool into the
+    tool's directory (bitwise equal), a rerun that skips both, and a shard
+    of altered versions refused.  Returns the frames/s both ways and the
+    worker count."""
+    import contextlib
+    import io
+
+    from spnet_tpu_torch.tools import refgen_dataset as rd
+
+    total = 2 * REFGEN_SHARD
+    rd.SHARD = REFGEN_SHARD  # restored by phase_refgen
+    t0 = time.perf_counter()
+    rd.write_shards(total, REFGEN_SIZE, 0, None, cache_dir="serial")
+    serial_s = time.perf_counter() - t0
+    _zero_counts()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = rd.main([str(total), str(REFGEN_SIZE), "0"])
+    if _counts() != _want_counts(_model_config()):
+        fail(f"refgen_dataset launched a kernel: {_counts()}")
+    if out["frames"] != total or "REFGEN_DONE" not in buf.getvalue():
+        fail(f"refgen_dataset: {out}; {buf.getvalue()[-2000:]}")
+    for s in range(2):
+        a = _shard_arrays(rd.shard_path(0, REFGEN_SIZE, s, "serial"))
+        b = _shard_arrays(rd.shard_path(0, REFGEN_SIZE, s))
+        bad = [k for k in a if a[k].shape != b[k].shape
+               or not np.array_equal(a[k], b[k])]
+        if bad or set(a) != set(b) or a["x"].shape != (
+                REFGEN_SHARD, REFGEN_SIZE, REFGEN_SIZE, 1):
+            fail(f"refgen: shard {s} pooled != serial in {bad}")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        again = rd.main([str(total), str(REFGEN_SIZE), "0"])
+    if again["frames"] != 0 or buf.getvalue().count("exists, skip") != 2:
+        fail(f"refgen: the rerun drew {again}")
+    os.makedirs("altered")
+    z = _shard_arrays(rd.shard_path(0, REFGEN_SIZE, 0))
+    z["versions"] = np.array(["cv2=0.0.0", *z["versions"][1:]])
+    np.savez(rd.shard_path(0, REFGEN_SIZE, 0, "altered"), **z)
+    try:
+        rd.write_shards(REFGEN_SHARD, REFGEN_SIZE, 0, None,
+                        cache_dir="altered")
+        fail("refgen: a shard of altered versions was not refused")
+    except SystemExit as e:
+        if "cv2=0.0.0" not in str(e) or \
+                f"cv2={rd.cv2.__version__}" not in str(e):
+            fail(f"refgen: the refusal names not both sets: {e}")
+    res = {"serial_frames_per_s": total / serial_s,
+           "pool_frames_per_s": out["frames_per_s"],
+           "workers": out["workers"]}
+    print(f"[refgen] {total} frames at {REFGEN_SIZE}: serial "
+          f"{res['serial_frames_per_s']:.1f} frames/s, pooled "
+          f"{res['pool_frames_per_s']} frames/s over {res['workers']} "
+          f"workers (bitwise equal); rerun skipped both shards; altered "
+          f"versions refused ({', '.join(rd.versions())})  [{smi}]")
+    return res
+
+
+def _model_config():
+    from spnet_tpu_torch.config import ModelConfig
+
+    return ModelConfig()
+
+
+def phase_refgen(seed: int, smi: str) -> dict:
+    """Phase 22: the reference generator's frames (`tools/refgen_dataset.py`)
+    and the recipe trained on them (`tools/refgen_run.py`) as a user runs
+    them, at a small depth and full width (Xception-331 bf16, b=32), in a
+    temporary directory: the shards (`_refgen_frames`), then `refgen_run`
+    on 96 + 32 frames with SPNET_CKPT, then `eval_breakdown <ckpt> refgen`
+    and `eval_tta <ckpt> refgen h` on its checkpoint.  Checks that the run
+    took the resident feed and the epoch form, each run's K1-K3 launches,
+    the overflow line and finite results; prints frames/s and the stage
+    seconds.  `seed` is unused: the tools seed themselves."""
+    from spnet_tpu_torch.tools import eval_breakdown, eval_tta, \
+        refgen_dataset, refgen_run
+    import spnet_tpu_torch.train.loop as loop
+
+    del seed
+    t0 = time.perf_counter()
+    mc = _model_config()
+    epochs, b = int(REFGEN_ARGV[0]), int(REFGEN_ARGV[1])
+    n_train, n_val = REFGEN_SPLIT
+    if (mc.backbone, mc.input_size) != ("Xception", REFGEN_SIZE):
+        fail("refgen: the recipe is no longer Xception-331")
+    val_batches = -(-n_val // max(b, min(VAL_BATCH, n_val)))
+    eval_batches = -(-n_val // VAL_BATCH) + 1  # + warm-up, at b=256
+    views = len(REFGEN_TTA_MODES.split(","))
+    saved = {"N_TRAIN": refgen_run.N_TRAIN, "N_VAL": refgen_run.N_VAL,
+             "SHARD": refgen_dataset.SHARD}
+    hooks = {"pick": loop._pick_feed, "epoch": loop.make_train_epoch}
+    env = {k: os.environ.get(k) for k in (
+        "SPNET_DEVICE", "SPNET_CKPT", "SPNET_LOGDIR", "SPNET_REMAT",
+        "SPNET_BACKBONE_DTYPE", "SPNET_TTA_PER_VIEW")}
+    seen = {"feeds": [], "epoch_forms": []}
+
+    def pick(*a, **k):
+        seen["feeds"].append(hooks["pick"](*a, **k))
+        return seen["feeds"][-1]
+
+    def make_epoch(*a, **k):
+        seen["epoch_forms"].append(hooks["epoch"](*a, **k))
+        return seen["epoch_forms"][-1]
+
+    cwd = os.getcwd()
+    res = {"counts": {}}
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            for k in env:
+                os.environ.pop(k, None)
+            os.environ.update(SPNET_DEVICE=DEVICE, SPNET_CKPT="ck")
+            os.chdir(tmp)
+            res.update(_refgen_frames(smi))
+            refgen_run.N_TRAIN, refgen_run.N_VAL = n_train, n_val
+            loop._pick_feed, loop.make_train_epoch = pick, make_epoch
+            out, res["counts"]["refgen_run"], text = _tool(
+                "refgen_run", refgen_run.main, REFGEN_ARGV,
+                _want_counts(mc, predict_batches=(val_batches + 1)
+                             * epochs + val_batches + 1,
+                             train_steps=_epoch_calls(
+                                 epochs * (n_train // b))), smi,
+                tag="refgen")
+            if seen["feeds"] != [True] or len(seen["epoch_forms"]) != 1 \
+                    or None in seen["epoch_forms"]:
+                fail(f"refgen_run: feeds {seen['feeds']}, epoch forms "
+                     f"{seen['epoch_forms']}: not the resident feed's "
+                     "epoch form")
+            over = [l.strip() for l in text.splitlines()
+                    if "grid-slot overflow frames:" in l]
+            stages = [l for l in text.splitlines() if l.startswith(
+                ("[stage]", "refgen data ready"))]
+            final = out["final_eval"]
+            print(f"[refgen] refgen_run: {'; '.join(over + stages)}; "
+                  f"final evaluation ring_acc {final['ring_acc']} mAP "
+                  f"{final['mAP']} total_obj {final['total_obj']}; "
+                  f"images/s {out['last']['img_per_sec']:.1f}  [{smi}]")
+            if len(over) != 1 or not over[0].endswith(
+                    f"/{n_train + n_val} (0.00%)") or not all(
+                    np.isfinite(final[k]) for k in (
+                        "ring_acc", "class_acc", "mAP", "mean_pix_err")):
+                fail(f"refgen_run: {over} {final}")
+            res["refgen_run"] = final
+
+            out, res["counts"]["eval_breakdown"], _ = _tool(
+                "eval_breakdown", eval_breakdown.main, ["ck", "refgen"],
+                _want_counts(mc, predict_batches=eval_batches), smi,
+                tag="refgen")
+            print(f"[refgen] BREAKDOWN {json.dumps(out)}  [{smi}]")
+            if out["n_true"] != final["total_obj"]:
+                fail(f"eval_breakdown refgen: {out['n_true']} true objects,"
+                     f" the run's evaluation {final['total_obj']}")
+
+            out, res["counts"]["eval_tta"], _ = _tool(
+                "eval_tta", eval_tta.main, ["ck", "refgen",
+                                            REFGEN_TTA_MODES],
+                _want_counts(mc, predict_batches=(1 + views + views + 1)
+                             * eval_batches), smi, tag="refgen")
+            print(f"[refgen] eval_tta refgen: plain ring_acc "
+                  f"{out['plain']['ring_acc']:.4f} mAP {out['plain']['mAP']}"
+                  f" | per view { {m: round(v['ring_acc'], 4) for m, v in out['per_view'].items()} }"
+                  f" | tta ring_acc {out['tta']['ring_acc']:.4f} mAP "
+                  f"{out['tta']['mAP']}  [{smi}]")
+            if out["source"] != "refgen" or out["plain"]["total_obj"] != \
+                    final["total_obj"] or not all(
+                        np.isfinite(out[r]["mAP"]) for r in ("plain", "tta")):
+                fail(f"eval_tta refgen: {out}")
+        finally:
+            os.chdir(cwd)
+            loop._pick_feed, loop.make_train_epoch = (hooks["pick"],
+                                                      hooks["epoch"])
+            refgen_run.N_TRAIN, refgen_run.N_VAL = (saved["N_TRAIN"],
+                                                    saved["N_VAL"])
+            refgen_dataset.SHARD = saved["SHARD"]
+            for k, v in env.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+    torch.cuda.empty_cache()
+    res["seconds"] = time.perf_counter() - t0
+    print(f"[refgen] phase 22 took {res['seconds']:.1f} s")
+    return res
+
+
 def _late_launches(name: str, feeds: dict, remat: dict, pre: dict) -> dict:
     """A loss kernel's launches on the paths of phases 11, 12 and 14."""
     return dict(feeds_launches={f: feeds[f]["counts"][name] for f in FEEDS},
@@ -3754,6 +3964,7 @@ def main(argv=None):
     validation = phase_validation(args.seed, smi)
     epoch = phase_epoch(args.seed, smi)
     dsd = phase_dataset_d(args.seed, smi)
+    refgen = phase_refgen(args.seed, smi)
     print(f"[done] {time.perf_counter() - t0:.1f} s after the device phase; "
           f"train {train['img_per_sec']:.1f} images/s at b={TRAIN_BATCH}; "
           f"zoo train images/s "
@@ -3792,6 +4003,10 @@ def main(argv=None):
     def dataset_d_launches(name):
         # phase 21: each Dataset-D arm's run and the blur split
         return {t: c[name] for t, c in dsd["counts"].items()}
+
+    def refgen_launches(name):
+        # phase 22: the refgen run and the two eval tools on its checkpoint
+        return {t: c[name] for t, c in refgen["counts"].items()}
 
     def epoch_launches(name):
         # phase 20: the graphed epoch form's 8-step runs (warm-up steps and
@@ -3866,6 +4081,7 @@ def main(argv=None):
         "native_library_ms": native["kern"]["sums"][16]["library_ms"],
         "validation_launches": validation_launches("sepconv_infer"),
         "dataset_d_launches": dataset_d_launches("sepconv_infer"),
+        "refgen_launches": refgen_launches("sepconv_infer"),
     },
         # the loss alone; the train step's forward also writes the
         # gradient (fused_ms, fused_bound_ms)
@@ -3891,6 +4107,7 @@ def main(argv=None):
               validation_launches=validation_launches("spnet_loss_fwd"),
               epoch_launches=epoch_launches("spnet_loss_fwd"),
               dataset_d_launches=dataset_d_launches("spnet_loss_fwd"),
+              refgen_launches=refgen_launches("spnet_loss_fwd"),
               epoch_ss_launches=epoch["ss"]["counts"][SS_COUNT],
               **_late_launches("spnet_loss_fwd", feeds, remat, pre)),
         # g * dloss/dy_pred from y_true, y_pred and g; the train step's
@@ -3910,6 +4127,7 @@ def main(argv=None):
               validation_launches=validation_launches("spnet_loss_bwd"),
               epoch_launches=epoch_launches("spnet_loss_bwd"),
               dataset_d_launches=dataset_d_launches("spnet_loss_bwd"),
+              refgen_launches=refgen_launches("spnet_loss_bwd"),
               **_late_launches("spnet_loss_bwd", feeds, remat, pre)),
         small("selective_sigmoid_fwd", k4_src, k4_at,
               heads["ss"]["predict_counts"]["selective_sigmoid_fwd"],

@@ -2,5 +2,6 @@
 host), and the accuracy-validation tools of the JAX package's scripts
 (`dataset_a`, `sanity_train`, `eval_breakdown`, `eval_tta`,
 `movie_predict`, the Dataset-D experiment `dataset_d` with its data
-stages `dataset_d_prep` and `dataset_d_inflate`, and `eval_blur_split`;
-on the card unless asked for the CPU)."""
+stages `dataset_d_prep` and `dataset_d_inflate`, `eval_blur_split`, and
+the reference-generator experiment `refgen_dataset` (host work) and
+`refgen_run`; on the card unless asked for the CPU)."""

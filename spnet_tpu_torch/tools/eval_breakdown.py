@@ -2,6 +2,8 @@
 
     python -m spnet_tpu_torch.tools.eval_breakdown <ckpt_dir> [n_val] \\
         [seed] [--device cuda]
+    python -m spnet_tpu_torch.tools.eval_breakdown <ckpt_dir> refgen \\
+        [--device cuda]
 
 Counterpart of the JAX package's `scripts/eval_breakdown.py`: ring
 correctness (|pred - true| <= 0.5, reference `diagnostics.py:45`) of
@@ -11,9 +13,11 @@ That separates "the ring regression is imprecise" from "the detector
 misses".  The val set is `n_val` (4992) synthetic frames of `seed`
 (777777) at the checkpoint's input size, through the disk cache
 (`tools/synth_cache.py`: the same frames `tools/dataset_a.py` scored).
-The JAX script's `refgen` source reads frames of the reference's own
-generator, whose shards this repository does not hold; it is not ported.
-Prints one line `BREAKDOWN {json}`.
+The `refgen` form reads the val split of the reference generator's frames
+instead (`tools/refgen_run.py::load_refgen`, the N_VAL frames after
+N_TRAIN, at the checkpoint's input size or 331 for a native-resolution
+checkpoint, as the JAX script reads them).  Prints one line
+`BREAKDOWN {json}`.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ from spnet_tpu_torch.cli.common import load_model_and_state
 from spnet_tpu_torch.config import IND_B, IND_NOOBJ, IND_RINGS, \
     VARS_PER_PRED
 from spnet_tpu_torch.grid import denormalize
+from spnet_tpu_torch.tools import refgen_run
 from spnet_tpu_torch.tools.runtime import add_device_arg, memory, \
     tool_device
 from spnet_tpu_torch.tools.synth_cache import cached_synth
@@ -93,14 +98,15 @@ def main(argv=None) -> dict:
     p.add_argument("seed", type=int, nargs="?", default=777777)
     add_device_arg(p)
     args = p.parse_args(argv)
-    if args.n_val == "refgen":
-        raise SystemExit("eval_breakdown: the 'refgen' source needs the "
-                         "reference generator's shards, which this "
-                         "repository does not hold")
-    n_val = int(args.n_val)
+    refgen = args.n_val == "refgen"
+    n_val = refgen_run.N_VAL if refgen else int(args.n_val)
     device = tool_device(args.device)
     cfg, model, _ = load_model_and_state(args.ckpt, device)
-    ds = cached_synth(n_val, cfg, seed=args.seed, device=device)
+    if refgen:
+        _, ds = refgen_run.load_refgen(refgen_run.N_TRAIN, n_val, cfg.grid,
+                                       size=cfg.model.input_size or 331)
+    else:
+        ds = cached_synth(n_val, cfg, seed=args.seed, device=device)
     y_pred, _ = predict_in_batches(make_predict_step(model), ds.x, 256,
                                    device)
     out = breakdown(denormalize(ds.y, cfg.grid),

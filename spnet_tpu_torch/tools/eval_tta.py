@@ -1,7 +1,7 @@
 """Flip test-time augmentation of a trained checkpoint on its val set.
 
-    python -m spnet_tpu_torch.tools.eval_tta <ckpt_dir> [synth] [modes] \\
-        [--device cuda]
+    python -m spnet_tpu_torch.tools.eval_tta <ckpt_dir> [synth|refgen] \\
+        [modes] [--device cuda]
 
 Counterpart of the JAX package's `scripts/eval_tta.py`: `evaluate_network`
 once as a single sweep (the reference's protocol) and once with the flip
@@ -9,11 +9,13 @@ ensemble (direct + `modes`, default 'h,v,hv'); between them, unless
 SPNET_TTA_PER_VIEW=0, each flipped view alone, flipped back and
 re-encoded into the truth's cell convention (`eval/tta.py`), scored by
 `calc_errors`.  A view far below the direct one means the model is not
-flip-equivariant and no merge can help.  The val set is the 4,992
-synthetic frames of seed 777777 at the checkpoint's input size from the
-disk cache (`tools/synth_cache.py`; generated when absent).  The JAX
-script's `refgen` source is not ported (its shards are not in this
-repository).  Prints one line `EVAL_TTA_RESULT {json}`.
+flip-equivariant and no merge can help.  The val set ('synth') is the
+4,992 synthetic frames of seed 777777 at the checkpoint's input size from
+the disk cache (`tools/synth_cache.py`; generated when absent), or
+('refgen') the val split of the reference generator's frames
+(`tools/refgen_run.py::load_refgen`: the N_VAL frames after N_TRAIN, at
+the checkpoint's input size or 331 for a native-resolution checkpoint, as
+the JAX script reads them).  Prints one line `EVAL_TTA_RESULT {json}`.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ from spnet_tpu_torch.eval.metrics import calc_errors
 from spnet_tpu_torch.eval.tta import flip_images, flipback_grid, \
     reencode_view
 from spnet_tpu_torch.grid import denormalize
+from spnet_tpu_torch.tools import refgen_run
 from spnet_tpu_torch.tools.runtime import add_device_arg, memory, \
     tool_device
 from spnet_tpu_torch.tools.synth_cache import cached_synth
@@ -75,16 +78,19 @@ def main(argv=None) -> dict:
     p.add_argument("modes", nargs="?", default="h,v,hv")
     add_device_arg(p)
     args = p.parse_args(argv)
-    if args.source != "synth":
-        raise SystemExit(f"eval_tta: source {args.source!r}: only 'synth' "
-                         "is ported ('refgen' needs the reference "
-                         "generator's shards, which this repository does "
-                         "not hold)")
+    if args.source not in ("synth", "refgen"):
+        raise SystemExit(f"eval_tta: source {args.source!r}: 'synth' or "
+                         "'refgen'")
     device = tool_device(args.device)
     cfg, model, step = load_model_and_state(args.ckpt, device)
     print(f"checkpoint {args.ckpt}: {cfg.model.backbone} "
           f"input_size={cfg.model.input_size} step={step}")
-    val_ds = cached_synth(VAL_FRAMES, cfg, seed=VAL_SEED, device=device)
+    if args.source == "refgen":
+        _, val_ds = refgen_run.load_refgen(
+            refgen_run.N_TRAIN, refgen_run.N_VAL, cfg.grid,
+            size=cfg.model.input_size or 331)
+    else:
+        val_ds = cached_synth(VAL_FRAMES, cfg, seed=VAL_SEED, device=device)
     print(f"val set: {val_ds.x.shape} from {args.source}")
 
     out = {"ckpt": args.ckpt, "source": args.source, "modes": args.modes}

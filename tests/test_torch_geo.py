@@ -38,8 +38,10 @@ from spnet_tpu_torch.ops.grid_encode import encode_batch_device
 from spnet_tpu_torch.ops.resize import resize
 from spnet_tpu_torch.train.schedule import onecycle_schedule
 from spnet_tpu_torch.train.state import create_train_state
+from spnet_tpu_torch.train import steps as t_steps
 from spnet_tpu_torch.train.steps import _prep_x, forward_loss, \
-    make_train_step
+    make_train_epoch, make_train_step
+from test_torch_train import PARAM_GROUPS, _param_group, _perturb, _rel_close
 
 torch.set_num_threads(2)
 GRID = GridSpec()
@@ -524,3 +526,162 @@ def test_geo_train_step_matches_jax(monkeypatch):
                                                    rel=1e-4)
     with pytest.raises(ValueError, match="GridSpec"):
         make_train_step(model, geo_augment=True)
+
+
+#: the geometric epoch against JAX's: the warped frames differ by float32
+#: rounding (WARP_ATOL; measured 4.6e-5), which six Adam steps amplify in
+#: the BN statistics and the group-pooled weight deviations past the plain
+#: epoch's bounds (measured: the exit flow's shortcut BN mean 1.3e-3 of its
+#: scale, the BN group's 99th percentile 0.104 of sum(lr)).  The port
+#: against itself with N(0, WARP_NOISE) added to its warped frames parts
+#: by as much (1.7e-3, 0.121), so those two are held to GEO_NOISE_FACTOR
+#: times the port's own spread under that noise.
+WARP_NOISE = 1e-5
+GEO_NOISE_FACTOR = 2.0
+
+
+def _deviations(got: dict, want: dict, model, sum_lr: float):
+    """(the largest BN statistic error of its leaf's scale, {group: (median,
+    99th percentile)} of the weights' |got - want| / sum_lr), after
+    asserting the per-leaf weight bounds of `test_train_epoch_matches_jax`:
+    every weight within 2 * sum(lr), each leaf's median within 0.05 and
+    99th percentile within 0.5 of it."""
+    stat_err, devs = 0.0, {}
+    for k, v in got.items():
+        g, w = v.numpy(), want[k].numpy()
+        if k.endswith(("running_mean", "running_var")):
+            stat_err = max(stat_err, np.abs(g - w).max() / np.abs(w).max())
+            continue
+        dev = np.abs(g - w).ravel() / sum_lr
+        assert dev.max() <= 2.0, (k, dev.max())
+        med, q99 = np.median(dev), np.quantile(dev, 0.99)
+        assert med <= 0.05 and q99 <= 0.5, (k, med, q99)
+        devs.setdefault(_param_group(model, k), []).append(dev)
+        devs.setdefault("all", []).append(dev)
+    assert set(devs) == {"all", *PARAM_GROUPS}
+    return stat_err, {grp: (np.median(np.concatenate(d)),
+                            np.quantile(np.concatenate(d), 0.99))
+                      for grp, d in devs.items()}
+
+
+def test_geo_epoch_matches_jax(monkeypatch):
+    """Two epochs of 3 steps of the port's `make_train_epoch(step,
+    geo_augment=True)` against JAX's `train_epoch_geo` (`steps.py:378`),
+    augmentation off, dropout 0, Xception at full width on 64^2 frames,
+    perturbed BN, optax Adam under the 1-cycle schedule.  JAX draws step
+    i of an epoch from `fold_in(epoch_rng, i)` split in 3 (the second
+    key); the test hands the same draws, in order, to the port's
+    `sample_geo_params`.  With `test_train_epoch_matches_jax`'s
+    tolerances: the losses within rel 1e-4, each step's encoded labels
+    bitwise the host codec's of its remapped rows, the per-leaf weight
+    bounds (`_deviations`).  The BN statistics and the group-pooled
+    weight deviations are held to GEO_NOISE_FACTOR times the port's
+    deviation from itself when WARP_NOISE perturbs its warped frames."""
+    monkeypatch.setenv("SPNET_SCAN_UNROLL", "1")
+    rng = np.random.default_rng(4)
+    b, lr_max, total = 4, 1e-3, 100
+    jm = jbuild(JModelConfig(**dataclasses.asdict(CFG)))
+    x_all = rng.integers(0, 256, (8, SIZE, SIZE, 1), dtype=np.uint8)
+    rows_all, mask_all = _random_rows(rng, 8)
+    rows_all[..., 5] = np.abs(rows_all[..., 5]) + 1  # every row valid
+    y_all = _host_encode(rows_all, mask_all)
+    v = jax.jit(lambda k, x: jm.init({"params": k, "dropout": k}, x,
+                                     train=False))(
+        jax.random.key(0), x_all[:1].astype(np.float32))
+    params = _perturb(_np_tree(v["params"]), rng)
+    stats = _perturb(_np_tree(v["batch_stats"]), rng)
+    idx_mats = [np.array([[0, 3, 5, 6], [1, 2, 4, 7], [6, 0, 2, 5]],
+                         np.int32),
+                np.array([[7, 1, 3, 0], [2, 5, 6, 4], [3, 7, 1, 2]],
+                         np.int32)]
+    rng_key = jax.random.key(1)
+    epoch_keys = [jax.random.fold_in(rng_key, e) for e in range(2)]
+    draws = [jaug.sample_geo_params(
+        jax.random.split(jax.random.fold_in(k, i), 3)[1], b)
+        for k in epoch_keys for i in range(3)]
+
+    j_state = j_create_state(jm, jax.random.key(0),
+                             jnp.zeros((b, SIZE, SIZE, 1)),
+                             j_schedule(lr_max, total), adam_variant="optax")
+    j_state = j_state.replace(
+        params=jax.tree_util.tree_map(jnp.asarray, params),
+        batch_stats=jax.tree_util.tree_map(jnp.asarray, stats))
+    j_epoch = j_make_train_step(jm, JLossWeights(), "same", l2_reg=1e-4,
+                                augment=False, indexed="epoch",
+                                pregather=False, geo_augment=True,
+                                grid=JGridSpec())
+    j_losses = []
+    for idx, key in zip(idx_mats, epoch_keys):
+        j_state, losses = j_epoch(j_state, x_all, y_all, rows_all, mask_all,
+                                  idx, key)
+        j_losses.append(np.asarray(losses))
+
+    pending, encoded = [], []
+    warp = augment.apply_geo_batch
+
+    def jax_draw(generator, n, *args):
+        assert n == b
+        return {k: torch.from_numpy(np.array(v)) for k, v in
+                pending.pop(0).items()}
+
+    def recording_encode(rows, mask, grid):
+        y = encode_batch_device(rows, mask, grid)
+        encoded.append((rows.numpy().copy(), mask.numpy().copy(),
+                        y.numpy().copy()))
+        return y
+
+    def port_run(noise: float):
+        """The port's two epochs on JAX's draws; `noise` > 0 adds
+        N(0, noise) to every warped frame.  Returns (model, losses)."""
+        pending[:] = draws
+        noise_gen = torch.Generator().manual_seed(5)
+
+        def noisy_warp(*a, **k):
+            x, rows = warp(*a, **k)
+            return x + noise * torch.randn(x.shape, generator=noise_gen), \
+                rows
+
+        monkeypatch.setattr(augment, "apply_geo_batch",
+                            noisy_warp if noise else warp)
+        model = build_model(CFG, device="cpu")
+        model.load_state_dict(flax_to_state_dict(params, stats, model))
+        state = create_train_state(model, sched, adam_variant="optax")
+        train_epoch_geo = make_train_epoch(
+            make_train_step(model, LossWeights(), "same", l2_reg=1e-4,
+                            augment=False, geo_augment=True, grid=GRID),
+            geo_augment=True)
+        gen = torch.Generator().manual_seed(0)
+        data = [torch.from_numpy(a)
+                for a in (x_all, y_all, rows_all, mask_all)]
+        losses = []
+        for idx in idx_mats:
+            state, loss = train_epoch_geo(state, *data,
+                                          torch.from_numpy(idx).long(), gen)
+            losses.append(loss.numpy())
+        assert not pending and state.step == state.opt_state.count == 6
+        return model, losses
+
+    monkeypatch.setattr(augment, "sample_geo_params", jax_draw)
+    monkeypatch.setattr(t_steps, "encode_batch_device", recording_encode)
+    sched = onecycle_schedule(lr_max, total)
+    model, losses = port_run(0.0)
+    for got, want in zip(losses, j_losses):
+        assert got.shape == (3,)
+        np.testing.assert_allclose(got, want, rtol=1e-4)
+    assert len(encoded) == 6
+    for rows, mask, y in encoded:
+        _assert_host_equal(y, _host_encode(rows, mask))
+
+    sum_lr = sum(sched(i) for i in range(6))
+    got = model.state_dict()
+    stat_err, groups = _deviations(got, flax_to_state_dict(
+        _np_tree(j_state.params), _np_tree(j_state.batch_stats), model),
+        model, sum_lr)
+    noisy, _ = port_run(WARP_NOISE)
+    self_err, self_groups = _deviations(noisy.state_dict(), got, model,
+                                        sum_lr)
+    assert stat_err <= GEO_NOISE_FACTOR * self_err, (stat_err, self_err)
+    for grp, (med, q99) in groups.items():
+        s_med, s_q99 = self_groups[grp]
+        assert med <= GEO_NOISE_FACTOR * s_med and \
+            q99 <= GEO_NOISE_FACTOR * s_q99, (grp, med, q99, s_med, s_q99)

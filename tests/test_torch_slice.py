@@ -216,7 +216,8 @@ def test_port_never_imports_jax():
         "'tools.runtime', 'tools.synth_cache', 'tools.dataset_a', "
         "'tools.sanity_train', 'tools.eval_breakdown', 'tools.eval_tta', "
         "'tools.movie_predict', 'tools.dataset_d', 'tools.dataset_d_prep', "
-        "'tools.dataset_d_inflate', 'tools.eval_blur_split')]\n"
+        "'tools.dataset_d_inflate', 'tools.eval_blur_split', "
+        "'tools.refgen_dataset', 'tools.refgen_run')]\n"
         "assert 'tkinter' not in sys.modules\n"
         "missing = [m for m in train if m not in sys.modules]\n"
         "assert not missing, missing\n"
@@ -230,7 +231,7 @@ def test_port_never_imports_jax():
                           env=dict(os.environ, PYTHONPATH=ROOT),
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 83  # every module imported
+    assert int(proc.stdout.split()[-1]) >= 87  # every module imported
 
 
 def _imported_modules(path):
@@ -252,7 +253,7 @@ def test_port_never_names_the_jax_package(where):
     files = [top] if top.endswith(".py") else [
         os.path.join(d, f) for d, _, fs in os.walk(top) for f in fs
         if f.endswith(".py")]
-    assert len(files) >= (1 if top.endswith(".py") else 83)
+    assert len(files) >= (1 if top.endswith(".py") else 87)
     if not top.endswith(".py"):  # the data-parallel modules are walked
         assert {os.path.join(top, "parallel", f) for f in (
             "__init__.py", "mesh.py", "multihost.py")} <= set(files)
@@ -260,7 +261,8 @@ def test_port_never_names_the_jax_package(where):
         assert {os.path.join(top, "tools", f"{f}.py") for f in (
             "runtime", "synth_cache", "dataset_a", "sanity_train",
             "eval_breakdown", "eval_tta", "movie_predict", "dataset_d",
-            "dataset_d_prep", "dataset_d_inflate", "eval_blur_split")
+            "dataset_d_prep", "dataset_d_inflate", "eval_blur_split",
+            "refgen_dataset", "refgen_run")
         } <= set(files)
     bad = sorted((os.path.relpath(f, ROOT), m) for f in files
                  for m in _imported_modules(f)

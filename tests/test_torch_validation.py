@@ -492,13 +492,6 @@ def test_tools_need_a_card_unless_asked(tool, argv, monkeypatch):
     assert runtime.tool_device("cpu") == torch.device("cpu")
 
 
-@pytest.mark.parametrize("tool,argv", [(eval_breakdown, ["ck", "refgen"]),
-                                       (eval_tta, ["ck", "refgen"])])
-def test_refgen_source_is_refused(tool, argv):
-    with pytest.raises(SystemExit, match="refgen"):
-        tool.main([*argv, "--device", "cpu"])
-
-
 # ---------------------------------------------------------------- (e)
 
 def _val_npz(path, x, y):
