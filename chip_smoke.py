@@ -186,11 +186,14 @@ check raises and the run exits non-zero:
                one card (refused: "Duplicate GPU", printed), then two gloo
                ranks (`chip_smoke.py --dp-child`, the backend passed
                explicitly) through `train_network` on their shards (b=128
-               global, 2 epochs of 4 steps): train losses and BatchNorm
-               running statistics equal on both, launches per rank, the
-               shared card's images/s (labelled, no claim), and one float32
-               b=16 step: loss and head-kernel gradient against one process
-               (rel 1e-5);
+               global, 2 epochs of 4 steps): each rank's resident training
+               bytes (its own shard: half the union's), train losses and
+               BatchNorm running statistics equal on both, launches per
+               rank, the shared card's images/s (labelled, no claim); the
+               sharded set's exchange (`ShardedRows`) on the card for one
+               epoch's steps: each rank's rows bitwise the union's [idx_r];
+               and one float32 b=16 step: loss and head-kernel gradient
+               against one process (rel 1e-5);
   17. bench  - the port's benchmarks as a user runs them:
                `tools/bench.py::main` (Xception-331 bf16, b=128, the
                synthetic set, a warm-up and a timed epoch of BENCH_STEPS
@@ -265,6 +268,15 @@ check raises and the run exits non-zero:
                <ckpt> refgen` and `eval_tta <ckpt> refgen h` on its
                checkpoint, each with its K1 launches; frames/s serial and
                pooled, and the stage seconds.
+  23. profile - `tools/profile_step.py` through its `main`, Xception-331
+               bf16: the epoch form (the graphed step) at b=16 and b=128
+               and the eager step at b=16, 5 traced steps each after a
+               warm-up: the step's ms, the busy share, the top kernels and
+               the device time by kernel class, printed with the card's
+               name and power limit; the b=16 epoch form must show the
+               loss kernel 5 times inside the graph replays (else the tool
+               raises); the class sums add up to the total; each run's
+               K1-K3 launches (the replays pass no wrapper).
 
 Every model path runs with all five launch counts (and the loss kernel's
 count of 'ss' launches) set to 0 just before it and checks them all just
@@ -278,8 +290,9 @@ those of phase 16, `bench_launches` and `native_launches` those of phases
 `native_bound_ms` and `native_library_ms`; K1-K3 add
 `validation_launches`, each tool's count in phase 19; K2-K3 add
 `epoch_launches`, phase 20's graphed runs, and K2 `epoch_ss_launches`;
-K1-K3 add `dataset_d_launches`, phase 21's runs, and `refgen_launches`,
-phase 22's);
+K1-K3 add `dataset_d_launches`, phase 21's runs, `refgen_launches`,
+phase 22's, and `profile_launches`, phase 23's; K2 `profile_trace_calls`,
+the loss kernel's calls in each phase-23 trace);
 the last line is
 `{"ok": true, "device": {...}}`.  Exits
 non-zero without a result when no CUDA device is available.  Needs torch
@@ -2818,12 +2831,35 @@ def _dp_data(seed: int):
                          cfg.grid, seed)
 
 
+def _exchange_check(local, union, device: str, seed: int) -> list:
+    """The sharded set's exchange on the card: this rank's shard (x, y) in
+    `ShardedRows`, one epoch's global order (`epoch_order`, as
+    `train_network` walks it); per step, whether the rows it hands this
+    rank are bitwise the union's [idx_r].  Returns [steps, steps equal]."""
+    from spnet_tpu_torch.parallel import mesh
+    from spnet_tpu_torch.parallel.multihost import ShardedRows
+    from spnet_tpu_torch.train.loop import epoch_order
+
+    put = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
+    shard = ShardedRows([put(local.x), put(local.y)])
+    order = epoch_order(shard.n_global, TRAIN_BATCH, seed, 0)
+    plan = shard.plan(order)
+    ux, uy = put(union.x), put(union.y)
+    equal = 0
+    for i, row in enumerate(order):
+        idx = mesh.local_rows(torch.from_numpy(row)).to(device)
+        x, y = shard.rows(plan, i)
+        equal += int(torch.equal(x, ux[idx]) and torch.equal(y, uy[idx]))
+    return [len(order), equal]
+
+
 def dp_child(mode: str, rank: int, world: int, port: str, tmp: str,
              seed: int):
     """One rank of phase 16(b), on cuda:0.  'nccl-probe': an NCCL group and
     one all-reduce (NCCL refuses two ranks on one device).  'gloo': a gloo
     group (the backend passed explicitly), `train_network` on this rank's
-    shards (b=TRAIN_BATCH global, 2 epochs), then one float32 step of
+    shards (b=TRAIN_BATCH global, 2 epochs; the training bytes it keeps
+    on the card recorded), `_exchange_check`, then one float32 step of
     DP_F32_BATCH through DDP; writes tmp/gloo_r{rank}.npz."""
     import dataclasses
 
@@ -2833,7 +2869,7 @@ def dp_child(mode: str, rank: int, world: int, port: str, tmp: str,
     from spnet_tpu_torch.models.spnet import build_model
     from spnet_tpu_torch.parallel import mesh
     from spnet_tpu_torch.parallel.multihost import maybe_initialize
-    from spnet_tpu_torch.train.loop import train_network
+    from spnet_tpu_torch.train import loop
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2858,12 +2894,26 @@ def dp_child(mode: str, rank: int, world: int, port: str, tmp: str,
             ds, x=mesh.local_rows(ds.x), y=mesh.local_rows(ds.y),
             file_list=list(mesh.local_rows(np.array(ds.file_list))))
 
+    resident = []
+    real = loop._to_device
+
+    def spy(ds, val_ds, dev, geo=False):  # the training arrays it keeps
+        res = real(ds, val_ds, dev, geo)
+        resident.append(sum(a.numel() * a.element_size() for i, a in
+                            enumerate(res) if i != 2 and a is not None))
+        return res
+
+    loop._to_device = spy
     _zero_counts()
-    state, hist = train_network(
-        cfg, shard(train_g), shard(val_g), device,
-        log_dir=os.path.join(tmp, f"log_r{rank}"),
-        ckpt_dir=os.path.join(tmp, "ckpt"), render_overlays=False)
+    try:
+        state, hist = loop.train_network(
+            cfg, shard(train_g), shard(val_g), device,
+            log_dir=os.path.join(tmp, f"log_r{rank}"),
+            ckpt_dir=os.path.join(tmp, "ckpt"), render_overlays=False)
+    finally:
+        loop._to_device = real
     counts = _counts()
+    exchange = _exchange_check(shard(train_g), train_g, device, seed)
     bns = [m for m in state.model.modules() if isinstance(m, BatchNorm)]
     stats = torch.cat([torch.cat([m.running_mean, m.running_var])
                        for m in bns]).cpu().numpy()
@@ -2883,6 +2933,9 @@ def dp_child(mode: str, rank: int, world: int, port: str, tmp: str,
              img_per_sec=np.array([h["img_per_sec"] for h in hist]),
              val=np.array([h["val_comps"]["total"] for h in hist]),
              stats=stats, step=np.array(step), f32_loss=np.array(loss),
+             resident=np.array(resident),
+             union_bytes=np.array(train_g.x.nbytes + train_g.y.nbytes),
+             exchange=np.array(exchange),
              head_grad=grad.cpu().numpy(), counts=json.dumps(counts))
     torch.distributed.destroy_process_group()
 
@@ -2926,6 +2979,19 @@ def _dp_two_ranks(seed: int, smi: str) -> dict:
     print(f"[dp] 2 gloo ranks sharing one card (two processes, host-staged "
           f"all-reduces; not a multi-GPU rate): train images/s "
           f"{res[0]['img_per_sec'].tolist()}  [{smi}]")
+    union = int(res[0]["union_bytes"])
+    resident = [r["resident"].tolist() for r in res]
+    exchange = [r["exchange"].tolist() for r in res]
+    print(f"[dp] sharded resident set: each gloo rank's training bytes on "
+          f"the card {resident} (x + y of its shard), the union's {union}; "
+          f"the exchange on the card, [steps, steps bitwise union[idx_r]] "
+          f"a rank: {exchange}")
+    if any(r != [union // 2] for r in resident) or union % 2:
+        fail(f"dp: resident training bytes {resident}, not half the "
+             f"union's {union} on each rank")
+    if any(e[0] != TRAIN_FRAMES // TRAIN_BATCH or e[1] != e[0]
+           for e in exchange):
+        fail(f"dp: the exchange's rows differ from the union's: {exchange}")
     if not np.array_equal(res[0]["losses"], res[1]["losses"]) or \
             not np.isfinite(res[0]["losses"]).all():
         fail("dp: the ranks' train losses differ")
@@ -2955,7 +3021,8 @@ def _dp_two_ranks(seed: int, smi: str) -> dict:
         fail(f"dp: f32 step 2 ranks vs 1 process: loss {l_rel}, gradient "
              f"{g_rel}")
     return dict(counts=counts, refused=refused, loss_rel=l_rel,
-                grad_rel=g_rel, img_per_sec=res[0]["img_per_sec"].tolist())
+                grad_rel=g_rel, img_per_sec=res[0]["img_per_sec"].tolist(),
+                resident=resident, union_bytes=union, exchange=exchange)
 
 
 def phase_dp(seed: int, smi: str) -> dict:
@@ -3912,6 +3979,65 @@ def phase_refgen(seed: int, smi: str) -> dict:
     return res
 
 
+PROFILE_RUNS = ((16, "epoch"), (128, "epoch"), (16, "eager"))  # phase 23
+PROFILE_STEPS = 5         # traced steps of each run (the tool's default)
+
+
+def phase_profile(seed: int, smi: str) -> dict:
+    """Phase 23: `tools/profile_step.py` through its `main` as a user runs
+    it (Xception-331 bf16), PROFILE_RUNS with PROFILE_STEPS steps each, its
+    traces in a temporary directory.  Each run's tables are printed; the
+    checks: the epoch form's trace shows the loss kernel once a step
+    inside the replays (the tool raises otherwise; checked again here),
+    the class sums add up to the kernels' total, the busy share lies in
+    (0, 1], and each run's launches: the epoch form's wrappers run in the
+    warm-up run only (`_epoch_calls`), the eager form's in all three runs
+    (warm-up, timed, traced).  `seed` is unused: the tool seeds itself."""
+    from spnet_tpu_torch.config import ModelConfig
+    from spnet_tpu_torch.tools import profile_step
+
+    del seed
+    t0 = time.perf_counter()
+    res = {"counts": {}, "runs": {}}
+    with tempfile.TemporaryDirectory() as tmp:
+        for b, form in PROFILE_RUNS:
+            tag = f"{form}_b{b}"
+            steps = (_epoch_calls(PROFILE_STEPS) if form == "epoch"
+                     else 3 * PROFILE_STEPS)
+            out, res["counts"][tag], text = _tool(
+                "profile_step", lambda argv: profile_step.main(
+                    argv, logdir=tmp),
+                [str(b), "--form", form, "--steps", str(PROFILE_STEPS)],
+                _want_counts(ModelConfig(), train_steps=steps), smi,
+                tag="profile")
+            print("\n".join(line for line in text.splitlines()
+                            if not line.startswith("PROFILE_STEP_RESULT")))
+            total = out["device_us_per_step"]
+            summed = sum(out["classes_us"].values())
+            print(f"[profile] {tag}: step {out['step_ms']:.3f} ms, busy "
+                  f"share {out['busy_share']:.4f}, kernels "
+                  f"{total:.1f} us a step, classes "
+                  f"{ {c: round(v, 1) for c, v in out['classes_us'].items()} }"
+                  f", loss_kernel calls in the trace "
+                  f"{out['loss_kernel_calls']}  [{smi}]")
+            if form == "epoch" and out["loss_kernel_calls"] != PROFILE_STEPS:
+                fail(f"profile {tag}: {out['loss_kernel_calls']} loss_kernel"
+                     f" calls in {PROFILE_STEPS} replays")
+            if not (abs(summed - total) <= 1e-6 * total and total > 0
+                    and 0 < out["busy_share"] <= 1 + 1e-9
+                    and np.isfinite(out["step_ms"])):
+                fail(f"profile {tag}: classes {summed} vs total {total}, "
+                     f"busy {out['busy_share']}, step {out['step_ms']}")
+            res["runs"][tag] = {k: out[k] for k in (
+                "step_ms", "busy_share", "device_us_per_step", "classes_us",
+                "class_shares", "loss_kernel_calls",
+                "bn_forward_us_per_step")}
+    torch.cuda.empty_cache()
+    res["seconds"] = time.perf_counter() - t0
+    print(f"[profile] phase 23 took {res['seconds']:.1f} s")
+    return res
+
+
 def _late_launches(name: str, feeds: dict, remat: dict, pre: dict) -> dict:
     """A loss kernel's launches on the paths of phases 11, 12 and 14."""
     return dict(feeds_launches={f: feeds[f]["counts"][name] for f in FEEDS},
@@ -3965,6 +4091,7 @@ def main(argv=None):
     epoch = phase_epoch(args.seed, smi)
     dsd = phase_dataset_d(args.seed, smi)
     refgen = phase_refgen(args.seed, smi)
+    profile = phase_profile(args.seed, smi)
     print(f"[done] {time.perf_counter() - t0:.1f} s after the device phase; "
           f"train {train['img_per_sec']:.1f} images/s at b={TRAIN_BATCH}; "
           f"zoo train images/s "
@@ -4007,6 +4134,10 @@ def main(argv=None):
     def refgen_launches(name):
         # phase 22: the refgen run and the two eval tools on its checkpoint
         return {t: c[name] for t, c in refgen["counts"].items()}
+
+    def profile_launches(name):
+        # phase 23: each profile_step run (warm-up, timed and traced runs)
+        return {t: c[name] for t, c in profile["counts"].items()}
 
     def epoch_launches(name):
         # phase 20: the graphed epoch form's 8-step runs (warm-up steps and
@@ -4082,6 +4213,7 @@ def main(argv=None):
         "validation_launches": validation_launches("sepconv_infer"),
         "dataset_d_launches": dataset_d_launches("sepconv_infer"),
         "refgen_launches": refgen_launches("sepconv_infer"),
+        "profile_launches": profile_launches("sepconv_infer"),
     },
         # the loss alone; the train step's forward also writes the
         # gradient (fused_ms, fused_bound_ms)
@@ -4108,6 +4240,9 @@ def main(argv=None):
               epoch_launches=epoch_launches("spnet_loss_fwd"),
               dataset_d_launches=dataset_d_launches("spnet_loss_fwd"),
               refgen_launches=refgen_launches("spnet_loss_fwd"),
+              profile_launches=profile_launches("spnet_loss_fwd"),
+              profile_trace_calls={t: r["loss_kernel_calls"]
+                                   for t, r in profile["runs"].items()},
               epoch_ss_launches=epoch["ss"]["counts"][SS_COUNT],
               **_late_launches("spnet_loss_fwd", feeds, remat, pre)),
         # g * dloss/dy_pred from y_true, y_pred and g; the train step's
@@ -4128,6 +4263,7 @@ def main(argv=None):
               epoch_launches=epoch_launches("spnet_loss_bwd"),
               dataset_d_launches=dataset_d_launches("spnet_loss_bwd"),
               refgen_launches=refgen_launches("spnet_loss_bwd"),
+              profile_launches=profile_launches("spnet_loss_bwd"),
               **_late_launches("spnet_loss_bwd", feeds, remat, pre)),
         small("selective_sigmoid_fwd", k4_src, k4_at,
               heads["ss"]["predict_counts"]["selective_sigmoid_fwd"],

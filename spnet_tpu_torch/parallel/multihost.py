@@ -9,7 +9,12 @@ Counterpart of `spnet_tpu/parallel/multihost.py`, with its names:
      `build_dataset(shard_index=, num_shards=)`: every rank computes the
      same seeded file order and takes its strided slice;
   3. `host_to_global()` is the union of the ranks' local shards in rank
-     order, the layout `jax.make_array_from_process_local_data` gives.
+     order, the layout `jax.make_array_from_process_local_data` gives;
+  4. `ShardedRows` keeps only this rank's shard of the training arrays on
+     its device, in that layout (rank s owns the global rows
+     [s * n, (s + 1) * n)), and hands each rank its rows of a global
+     minibatch through one `all_to_all_single` a step, where JAX's
+     jitted gather reads the rows of a global array across the devices.
 
 A job is configured by the JAX package's variables (SPNET_COORDINATOR or
 JAX_COORDINATOR_ADDRESS = host:port, SPNET_NUM_PROCESSES, SPNET_PROCESS_ID,
@@ -103,6 +108,31 @@ def is_multiprocess() -> bool:
     return world_size() > 1
 
 
+def _collective_device() -> torch.device:
+    """Where the host-side collectives (`global_length`,
+    `host_to_global`) put their tensors: the current CUDA device under
+    NCCL, which takes no CPU tensor; the CPU under gloo."""
+    return (torch.device("cuda", torch.cuda.current_device())
+            if dist.get_backend() == "nccl" else torch.device("cpu"))
+
+
+def global_length(n_local: int) -> int:
+    """The global set's length, W * n_local; raises unless every rank
+    holds n_local rows (JAX's process-local layout needs equal shards)."""
+    if not is_multiprocess():
+        return n_local
+    dev = _collective_device()
+    sizes = [torch.zeros(1, dtype=torch.int64, device=dev)
+             for _ in range(world_size())]
+    dist.all_gather(sizes, torch.tensor([n_local], dtype=torch.int64,
+                                        device=dev))
+    if any(int(s) != n_local for s in sizes):
+        raise ValueError(f"local shards of unequal length "
+                         f"{[int(s) for s in sizes]}: every rank must hold "
+                         "the same number of frames")
+    return n_local * world_size()
+
+
 def host_to_global(x_local) -> np.ndarray:
     """The ranks' equal local shards (leading axis), concatenated in rank
     order on every rank: one `all_gather` of each shard's bytes, on the
@@ -111,19 +141,99 @@ def host_to_global(x_local) -> np.ndarray:
     a = np.ascontiguousarray(x_local)
     if not is_multiprocess():
         return a
-    dev = (torch.device("cuda", torch.cuda.current_device())
-           if dist.get_backend() == "nccl" else torch.device("cpu"))
+    dev = _collective_device()
     n = a.shape[0]
-    sizes = [torch.zeros(1, dtype=torch.int64, device=dev)
-             for _ in range(world_size())]
-    dist.all_gather(sizes, torch.tensor([n], dtype=torch.int64, device=dev))
-    if any(int(s) != n for s in sizes):
-        raise ValueError(f"local shards of unequal length "
-                         f"{[int(s) for s in sizes]}: every rank must hold "
-                         "the same number of frames")
+    global_length(n)
     row = int(np.prod(a.shape[1:], dtype=np.int64))
     local = torch.from_numpy(a.reshape(n, row).view(np.uint8)).to(dev)
     parts = [torch.empty_like(local) for _ in range(world_size())]
     dist.all_gather(parts, local)
     out = torch.cat(parts).cpu().numpy().view(a.dtype)
     return out.reshape((world_size() * n,) + a.shape[1:])
+
+
+class ShardedRows:
+    """This rank's shard of the training arrays, resident on its device,
+    and the exchange that gives every rank its rows of a global minibatch.
+
+    `arrays` are this rank's rows [rank * n, (rank + 1) * n) of each
+    global array (equal n on every rank; x, y and, with geometric
+    augmentation, the raw rows and their mask), on one device.  For an
+    epoch's global order (steps, b) `plan(order)` works out on the host,
+    once, what each step moves: rank r trains on the rows
+    order[i, r * b/W:(r + 1) * b/W] (`mesh.local_rows`), and every rank
+    sends r those of them it owns.  `rows(plan, i)` then makes one
+    `all_to_all_single` of step i: each frame's arrays packed as one byte
+    row, sent in destination order, received grouped by source and put
+    back into the order of r's slice, so the result is bitwise
+    union[order[i, r-slice]] for each array, where union is the
+    global set (`host_to_global`).  The exchange runs on the shard's
+    device under either backend (gloo takes `all_to_all_single` on CUDA
+    tensors and stages them through the host itself).  `nbytes` is what
+    the shard holds."""
+
+    def __init__(self, arrays):
+        self.arrays = tuple(arrays)
+        self.device = self.arrays[0].device
+        self.n_local = int(self.arrays[0].shape[0])
+        if any(int(a.shape[0]) != self.n_local for a in self.arrays):
+            raise ValueError("the shard's arrays have different lengths")
+        self.n_global = global_length(self.n_local)
+        # bytes of one frame's row of each array, in packing order
+        self.widths = [int(np.prod(a.shape[1:])) * a.element_size()
+                       for a in self.arrays]
+        self.nbytes = sum(a.numel() * a.element_size() for a in self.arrays)
+
+    def plan(self, order: np.ndarray) -> dict:
+        """Step by step, this rank's sends (local rows, counts a
+        destination) and receives (counts a source, the permutation into
+        its slice's order), from the epoch's global order (steps, b)."""
+        order = np.asarray(order, dtype=np.int64)
+        steps, b = order.shape
+        world, me = world_size(), rank()
+        if b % world:
+            raise ValueError(f"a global batch of {b} does not split over "
+                             f"{world} ranks")
+        if order.size and (order.min() < 0 or order.max() >= self.n_global):
+            raise ValueError(f"the order indexes outside the {self.n_global}"
+                             " global rows")
+        per = b // world
+        owner = order // self.n_local
+        dest = np.arange(b) // per
+        mine = owner == me
+        # my positions first, in position order (so grouped by destination)
+        pos = np.argsort(~mine, axis=1, kind="stable")
+        n_send = mine.sum(1)
+        # (past n_send a row holds other ranks' rows, never read)
+        send = np.take_along_axis(order, pos, 1) - me * self.n_local
+        slice_owner = owner[:, me * per:(me + 1) * per]
+        # received row k is the slice's position src[k]; out[j] = recv[inv[j]]
+        src = np.argsort(slice_owner, axis=1, kind="stable")
+        return dict(
+            send=torch.from_numpy(send).to(self.device),
+            n_send=n_send.tolist(),
+            send_counts=np.stack([(mine & (dest == d)).sum(1)
+                                  for d in range(world)], 1).tolist(),
+            recv_counts=np.stack([(slice_owner == s).sum(1)
+                                  for s in range(world)], 1).tolist(),
+            perm=torch.from_numpy(np.argsort(src, axis=1)).to(self.device))
+
+    def rows(self, plan: dict, i: int) -> tuple:
+        """This rank's rows of step i's global minibatch, one tensor an
+        array, on the shard's device."""
+        sel = plan["send"][i, :plan["n_send"][i]]
+        packed = torch.cat([a.index_select(0, sel).reshape(
+            len(sel), w // a.element_size()).view(torch.uint8)
+            for a, w in zip(self.arrays, self.widths)], 1)
+        recv_counts = plan["recv_counts"][i]
+        out = torch.empty((sum(recv_counts), packed.shape[1]),
+                          dtype=torch.uint8, device=self.device)
+        dist.all_to_all_single(out, packed, output_split_sizes=recv_counts,
+                               input_split_sizes=plan["send_counts"][i])
+        out = out[plan["perm"][i]]
+        res, at = [], 0
+        for a, w in zip(self.arrays, self.widths):
+            res.append(out[:, at:at + w].contiguous().view(a.dtype)
+                       .reshape((len(out),) + tuple(a.shape[1:])))
+            at += w
+        return tuple(res)

@@ -4,4 +4,6 @@ host), and the accuracy-validation tools of the JAX package's scripts
 `movie_predict`, the Dataset-D experiment `dataset_d` with its data
 stages `dataset_d_prep` and `dataset_d_inflate`, `eval_blur_split`, and
 the reference-generator experiment `refgen_dataset` (host work) and
-`refgen_run`; on the card unless asked for the CPU)."""
+`refgen_run`; on the card unless asked for the CPU), the step profiler
+`profile_step`, and the Keras-side diagnostics `keras_train_diff` and
+`keras_h5_finetune` (they need tensorflow / keras: CPU hosts only)."""

@@ -41,13 +41,16 @@ feeds (`device_data`):
 
 Data-parallel training (JAX's multi-device and multi-process branches):
 when a `torch.distributed` group runs (`parallel/multihost.py::
-maybe_initialize`), each rank passes its own file shard, the training set
-is the union of the shards in rank order (`host_to_global`), resident on
-every rank's device, so the steps, the schedule and a resume count global
-steps; every rank walks the same seeded epoch order, gathers, augments
-and trains on its own rows of each global batch inside
-`DistributedDataParallel` (`train/steps.py`), with the augmentation and
-dropout draws and the BatchNorm statistics of the global batch.  Each
+maybe_initialize`), each rank passes its own file shard and keeps only
+that shard resident on its device (`ShardedRows`); the training set is
+the union of the equal shards in rank order, as JAX lays it out, so the
+steps, the schedule and a resume count global steps.  Every rank walks
+the same seeded epoch order over the global set, receives its own rows
+of each global batch from the ranks that hold them (one all-to-all a
+step, planned on the host once an epoch), and augments and trains on
+them inside `DistributedDataParallel` (`train/steps.py`), with the
+augmentation and dropout draws and the BatchNorm statistics of the
+global batch.  Each
 rank scores its own val shard, as in JAX.  Rank 0 alone writes
 `losses.dat`, the plots, TensorBoard and the checkpoint; every rank
 restores from it.
@@ -58,7 +61,6 @@ port does not carry.
 
 from __future__ import annotations
 
-import dataclasses
 import os
 import sys
 import time
@@ -77,7 +79,7 @@ from spnet_tpu_torch.io.logs import LossLog, save_progress_plot
 from spnet_tpu_torch.io.tb import TBWriter
 from spnet_tpu_torch.io.render import show_pred_ellipses
 from spnet_tpu_torch.parallel import mesh
-from spnet_tpu_torch.parallel.multihost import host_to_global
+from spnet_tpu_torch.parallel.multihost import ShardedRows, global_length
 from spnet_tpu_torch.train.chunked import ChunkStreamer, Stager, \
     plan_chunks, run_chunked_epoch
 from spnet_tpu_torch.train.schedule import onecycle_schedule
@@ -162,7 +164,8 @@ def _to_device(ds: Dataset, val_ds: Dataset, device: torch.device,
                geo: bool = False):
     """The resident arrays (x, y, val x, and with `geo` the raw rows and
     their mask, else None); raises when they do not fit the card (the
-    chunked and host-fed feeds take such a set)."""
+    chunked and host-fed feeds take such a set).  In a group `ds` is this
+    rank's shard, and the shard is what must fit."""
     need = _resident_bytes(ds, val_ds, geo)
     if need > _budget(device):
         raise MemoryError(
@@ -170,8 +173,9 @@ def _to_device(ds: Dataset, val_ds: Dataset, device: torch.device,
             f"{ds.x.nbytes / 1e9:.2f} GB frames + labels"
             + (" + raw rows" if geo else "") + ", val "
             f"{val_ds.x.nbytes / 1e9:.2f} GB frames), more than "
-            f"{RESIDENT_FRACTION:.0%} of the card's memory; train with "
-            "device_data='chunked' or False")
+            f"{RESIDENT_FRACTION:.0%} of the card's memory; "
+            + ("spread the set over more ranks" if mesh.world_size() > 1
+               else "train with device_data='chunked' or False"))
 
     def put(a):
         return torch.as_tensor(a).to(device)
@@ -213,19 +217,6 @@ def _pick_feed(device_data, train_ds: Dataset, val_ds: Dataset,
     return device_data
 
 
-def _global_train_set(ds: Dataset) -> Dataset:
-    """The union of the ranks' training shards in rank order, on every
-    rank (the global set JAX assembles with `host_to_global`)."""
-    names = [None] * mesh.world_size()
-    torch.distributed.all_gather_object(names, ds.file_list)
-    return dataclasses.replace(
-        ds, x=host_to_global(ds.x), y=host_to_global(ds.y),
-        file_list=[f for part in names for f in part],
-        rows=None if ds.rows is None else host_to_global(ds.rows),
-        row_mask=None if ds.row_mask is None else host_to_global(
-            ds.row_mask))
-
-
 def train_network(cfg: ExperimentConfig, train_ds: Dataset,
                   val_ds: Dataset, device: str | torch.device = "cuda",
                   log_dir: str = "./logs/run", ckpt_dir: str | None = None,
@@ -240,9 +231,10 @@ def train_network(cfg: ExperimentConfig, train_ds: Dataset,
     chunk_budget: the bytes the chunked feed's chunks may take on the
     device (`plan_chunks` sizes ~3 in flight); None = RESIDENT_FRACTION of
     the card less the val frames.  In a group of W > 1 ranks, train_ds and
-    val_ds are this rank's shards, the batch size is global (W must divide
-    it), the feed is the resident one, and a bare 'cuda' device is
-    `cuda:LOCAL_RANK` (`mesh.local_device`)."""
+    val_ds are this rank's shards (equal lengths on every rank), the batch
+    size is global (W must divide it), the feed is the resident one with
+    only this rank's shard on its card (the budget holds the shard), and a
+    bare 'cuda' device is `cuda:LOCAL_RANK` (`mesh.local_device`)."""
     tc, mc, grid = cfg.train, cfg.model, cfg.grid
     device = mesh.local_device(device)
     geo = tc.geo_augment
@@ -255,13 +247,12 @@ def train_network(cfg: ExperimentConfig, train_ds: Dataset,
         if tc.batch_size % n_ranks:
             raise ValueError(f"batch size {tc.batch_size} does not split "
                              f"over {n_ranks} ranks")
-        train_ds = _global_train_set(train_ds)
-        # the global set is resident on every rank, as in JAX: chunks or
+        # each rank's shard is resident on its card, as in JAX: chunks or
         # host batches would need coordination between the ranks
         device_data = True
     model = build_model(mc, num_outputs=grid.num_outputs, device=device,
                         generator=torch.Generator().manual_seed(tc.seed))
-    n_train = train_ds.x.shape[0]
+    n_train = global_length(train_ds.x.shape[0])  # JAX: x.shape[0] * n_proc
     repeats = max(int(tc.epoch_repeats), 1)
     steps_per_epoch = (n_train // tc.batch_size) * repeats
     if steps_per_epoch == 0:
@@ -307,10 +298,14 @@ def train_network(cfg: ExperimentConfig, train_ds: Dataset,
         x_all, y_all, x_val, rows_all, mask_all = _to_device(
             train_ds, val_ds, device, geo)
         feed = (x_all, y_all, rows_all, mask_all) if geo else (x_all, y_all)
+        if n_ranks > 1:
+            shard = ShardedRows(feed)
         if verbose:
             print(f"    device-resident dataset: "
                   f"{(train_ds.x.nbytes + val_ds.x.nbytes) / 1e9:.2f} GB on "
-                  f"{device}")
+                  f"{device}" + (f" (rank {mesh.rank()}'s shard of "
+                                 f"{n_train} frames)" if n_ranks > 1
+                                 else ""))
     else:
         stager = Stager(arrays, tc.batch_size, device)
         x_val = val_ds.x
@@ -320,7 +315,8 @@ def train_network(cfg: ExperimentConfig, train_ds: Dataset,
     train_step = make_train_step(
         model, cfg.loss_weights, mc.loss_type, l2_reg=mc.l2_reg,
         augment=tc.augment, blur_prob=tc.blur_prob,
-        indexed="epoch" if device_data else False, geo_augment=geo,
+        indexed=("rows" if n_ranks > 1 else "epoch") if device_data
+        else False, geo_augment=geo,
         grid=grid)
     # the epoch form where the step is one rank's and has no remat region
     train_epoch = (make_train_epoch(train_step, geo)
@@ -360,13 +356,20 @@ def train_network(cfg: ExperimentConfig, train_ds: Dataset,
         else:
             order = epoch_order(n_train, tc.batch_size, tc.seed, epoch,
                                 repeats)
-            if device_data:
+            if n_ranks > 1:
+                plan = shard.plan(order)
+            elif device_data:
                 idx_mat = torch.from_numpy(order).to(device)
             if train_epoch is not None:
                 state, losses = train_epoch(state, *feed, idx_mat, gen)
             else:
-                feed_iter = (((*feed, idx) for idx in idx_mat) if device_data
-                             else stager.stream_rows(order))
+                if n_ranks > 1:
+                    feed_iter = (shard.rows(plan, i)
+                                 for i in range(len(order)))
+                elif device_data:
+                    feed_iter = ((*feed, idx) for idx in idx_mat)
+                else:
+                    feed_iter = stager.stream_rows(order)
                 losses = []
                 for batch in feed_iter:
                     state, metrics = train_step(state, *batch, gen)

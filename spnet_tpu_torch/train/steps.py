@@ -156,9 +156,13 @@ def make_train_step(model: nn.Module,
     augmentation and dropout draws are the global batch's, from the
     generator every rank seeds alike, so a run does not depend on the world
     size; the BatchNorm statistics are the global batch's, and the logged
-    losses are averaged over the ranks."""
-    if indexed not in ("epoch", False):
-        raise ValueError(f"indexed must be 'epoch' or False, got "
+    losses are averaged over the ranks.  With indexed="rows" (a sharded
+    resident set, `parallel/multihost.py::ShardedRows`) the step takes
+    this rank's rows of the minibatch, already gathered:
+    train_step(state, x, y, generator), or with `geo_augment`
+    train_step(state, x, y, rows, mask, generator) (y is not read)."""
+    if indexed not in ("epoch", "rows", False):
+        raise ValueError(f"indexed must be 'epoch', 'rows' or False, got "
                          f"{indexed!r}")
     if l2_scope not in L2_SCOPES:
         raise ValueError(f"l2 scope must be one of {L2_SCOPES}, got "
@@ -217,6 +221,18 @@ def make_train_step(model: nn.Module,
 
     def local(*ts):
         return [None if t is None else mesh.local_rows(t) for t in ts]
+
+    if indexed == "rows":
+        if geo_augment:
+            def train_step_rows_geo(state, x, y, rows, mask, generator):
+                return step(state, x, None, generator, rows, mask)
+
+            return train_step_rows_geo
+
+        def train_step_rows(state, x, y, generator):
+            return step(state, x, y, generator)
+
+        return train_step_rows
 
     if indexed is False:
         if geo_augment:

@@ -26,8 +26,9 @@ from spnet_tpu_torch.models.spnet import build_model  # noqa: E402
 from spnet_tpu_torch.parallel import mesh  # noqa: E402
 from spnet_tpu_torch.ops.augment import augment_on_the_fly, \
     geo_augment_batch  # noqa: E402
-from spnet_tpu_torch.parallel.multihost import host_to_global, \
+from spnet_tpu_torch.parallel.multihost import ShardedRows, \
     maybe_initialize, process_shard  # noqa: E402
+from spnet_tpu_torch.train import loop  # noqa: E402
 from spnet_tpu_torch.train.loop import train_network  # noqa: E402
 from spnet_tpu_torch.train.schedule import onecycle_schedule  # noqa: E402
 from spnet_tpu_torch.train.state import create_train_state  # noqa: E402
@@ -128,14 +129,27 @@ def _step(d: str) -> dict:
     return out
 
 
-def _loop(d: str) -> dict:
-    """`train_network` on this rank's shards (MobileNetTiny 64^2, float32,
-    augmentation and dropout on): 2 epochs, then resumed to 3.  Rank r logs
-    into log_r{r}; every rank shares one checkpoint directory."""
+def _spy_resident(out: dict) -> None:
+    """Record in out['resident_x'] / ['resident_bytes'] the training
+    arrays `train_network` puts on its device (`loop._to_device`)."""
+    real = loop._to_device
+
+    def spy(ds, val_ds, device, geo=False):
+        res = real(ds, val_ds, device, geo)
+        train = [a for i, a in enumerate(res) if i != 2 and a is not None]
+        out["resident_x"] = res[0].numpy().copy()
+        out["resident_bytes"] = np.array(sum(a.numel() * a.element_size()
+                                             for a in train))
+        return res
+
+    loop._to_device = spy
+
+
+def _loop_data(d: str):
+    """(config, this rank's train and val shards) of loop_in.npz."""
     z = np.load(os.path.join(d, "loop_in.npz"))
     with open(os.path.join(d, "loop_cfg.json")) as f:
         cfg = ExperimentConfig.from_json(f.read())
-    r, world = mesh.rank(), int(sys.argv[3])
 
     def shard(name):  # the whole array without a group
         return mesh.local_rows(z[name])
@@ -145,10 +159,19 @@ def _loop(d: str) -> dict:
                     file_list=list(shard("names")))
     val = Dataset(x=shard("vx"), y=shard("vy"), grid=grid,
                   file_list=list(shard("vnames")))
-    # every rank holds the union of the training shards, in rank order
-    union = host_to_global(train.x)
+    return cfg, train, val
+
+
+def _loop(d: str) -> dict:
+    """`train_network` on this rank's shards (MobileNetTiny 64^2, float32,
+    augmentation and dropout on): 2 epochs, then resumed to 3.  Rank r logs
+    into log_r{r}; every rank shares one checkpoint directory.  Records
+    the training arrays each run keeps on the device (`_spy_resident`)."""
+    cfg, train, val = _loop_data(d)
+    r, world = mesh.rank(), int(sys.argv[3])
     tag = f"w{world}"
-    out = {"union": union}
+    out = {}
+    _spy_resident(out)
     for epochs in (2, 3):
         run = dataclasses.replace(cfg, train=dataclasses.replace(
             cfg.train, epochs=epochs))
@@ -167,7 +190,52 @@ def _loop(d: str) -> dict:
     return out
 
 
-MODES = {"bn": _bn, "aug": _aug, "step": _step, "loop": _loop}
+def _budget(d: str) -> dict:
+    """`train_network` for one epoch with `loop._budget` set to what this
+    rank's shard and val shard take: the union of the shards would not
+    fit one rank, each shard fits its own."""
+    cfg, train, val = _loop_data(d)
+    fits = train.x.nbytes + train.y.nbytes + val.x.nbytes
+    loop._budget = lambda device: fits
+    out = {"budget": np.array(fits)}
+    _spy_resident(out)
+    run = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, epochs=1))
+    state, hist = train_network(run, train, val, "cpu",
+                                log_dir=os.path.join(d, f"budget_r"
+                                                        f"{mesh.rank()}"),
+                                render_overlays=False, verbose=0)
+    out.update(losses=np.array([h["train_loss"] for h in hist]),
+               step=np.array(state.step))
+    return out
+
+
+def _exchange(d: str) -> dict:
+    """`ShardedRows` on this rank's shard of exchange_in.npz's global
+    arrays (x uint8, y float32, the raw rows float32 and their bool mask,
+    N_LOCAL rows a rank): for each step of each order of this world size,
+    this rank's rows of the global minibatch.  Writes them stacked, one
+    key an array and order."""
+    z = np.load(os.path.join(d, "exchange_in.npz"))
+    world, r = mesh.world_size(), mesh.rank()
+    n = int(z["n_local"])
+    shard = ShardedRows([torch.from_numpy(z[k][r * n:(r + 1) * n])
+                         for k in ("x", "y", "rows", "mask")])
+    out = {"nbytes": np.array(shard.nbytes)}
+    for name in z.files:
+        if not name.startswith(f"order_w{world}_"):
+            continue
+        order = z[name]
+        plan = shard.plan(order)
+        got = [shard.rows(plan, i) for i in range(len(order))]
+        for k, key in enumerate(("x", "y", "rows", "mask")):
+            out[f"{name}_{key}"] = np.concatenate([g[k].numpy()
+                                                   for g in got])
+    return out
+
+
+MODES = {"bn": _bn, "aug": _aug, "step": _step, "loop": _loop,
+         "budget": _budget, "exchange": _exchange}
 
 
 def main():

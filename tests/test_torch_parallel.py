@@ -27,6 +27,7 @@ from spnet_tpu.train.state import create_train_state as j_create_state
 from spnet_tpu.train.steps import make_train_step as j_make_train_step
 from spnet_tpu_torch.config import ExperimentConfig, GridSpec, ModelConfig, \
     TrainConfig
+from spnet_tpu_torch.data.dataset import Dataset
 from spnet_tpu_torch.convert import flax_to_state_dict
 from spnet_tpu_torch.grid import batch_ellipses_to_grid, \
     canonicalize_records, normalize
@@ -439,9 +440,9 @@ def test_train_network_two_ranks(tmp_path):
     16 val frames (MobileNetTiny 64^2, float32, b=8 global, augmentation
     and dropout on, half the backbone frozen for the first epoch, so DDP
     runs through the unfreeze): 2 epochs, then resumed to 3.  Both ranks'
-    losses and final states bitwise equal; the global set (the union of
-    the shards in rank order) on both; the global step count (4 an
-    epoch); rank 0 alone writes losses.dat and the checkpoint; and the run
+    losses and final states bitwise equal; each rank's own shard (and
+    only it) resident (rank 0 x[:16], rank 1 x[16:]); the global step
+    count (4 an epoch); rank 0 alone writes losses.dat and the checkpoint; and the run
     follows the one-process run on the whole set (the same epoch order,
     augmentation and dropout draws): losses rel 1e-4 (measured 1.2e-5,
     7.1e-7 without the freeze; the float32 BatchNorm moments of half
@@ -467,9 +468,13 @@ def test_train_network_two_ranks(tmp_path):
     z = np.load(tmp_path / "loop_in.npz")
     one, r0, r1 = res[(0, 0)], res[(2, 0)], res[(2, 1)]
     for k in r0:
-        if not k.startswith("val_"):  # each rank scores its own val shard
+        # each rank scores its own val shard and holds its own train shard
+        if not k.startswith(("val_", "resident_")):
             np.testing.assert_array_equal(r0[k], r1[k], err_msg=k)
-    np.testing.assert_array_equal(r0["union"], z["x"])
+    np.testing.assert_array_equal(r0["resident_x"], z["x"][:16])
+    np.testing.assert_array_equal(r1["resident_x"], z["x"][16:])
+    assert int(r0["resident_bytes"]) == int(r1["resident_bytes"]) == (
+        z["x"].nbytes + z["y"].nbytes) // 2
     assert r0["epochs_2"].tolist() == [0, 1]
     assert r0["epochs_3"].tolist() == [2]
     assert int(r0["step_2"]) == 8 and int(r0["step_3"]) == 12
@@ -482,6 +487,103 @@ def test_train_network_two_ranks(tmp_path):
         np.testing.assert_allclose(r0[f"losses_{e}"], one[f"losses_{e}"],
                                    rtol=1e-4)
     assert np.isfinite(r0["val_2"]).all() and np.isfinite(r1["val_2"]).all()
+
+
+N_LOCAL, EXCHANGE_BATCH = 10, 6  # rows a rank; a global batch (W = 2, 3)
+
+
+def _exchange_orders(rng, world: int) -> dict:
+    """Global orders (steps, EXCHANGE_BATCH) over world * N_LOCAL rows:
+    seeded random draws with repeats, the epoch order `train_network`
+    walks, an order whose whole minibatch lives on the last rank, and one
+    whose every rank's slice lives wholly on one other rank."""
+    from spnet_tpu_torch.train.loop import epoch_order
+
+    n, per = world * N_LOCAL, EXCHANGE_BATCH // world
+    last = rng.integers((world - 1) * N_LOCAL, n, (2, EXCHANGE_BATCH))
+    other = np.concatenate([
+        rng.integers(((r + 1) % world) * N_LOCAL,
+                     ((r + 1) % world + 1) * N_LOCAL, (3, per))
+        for r in range(world)], axis=1)
+    return {"random": rng.integers(0, n, (5, EXCHANGE_BATCH)),
+            "epoch": epoch_order(n, EXCHANGE_BATCH, 3, 1, repeats=2),
+            "one_rank": last, "other_rank": other}
+
+
+def test_sharded_rows_exchange(tmp_path):
+    """`ShardedRows` on W = 2 and W = 3 gloo ranks, each holding its
+    N_LOCAL rows of a global set (x uint8 frames, y float32 labels, the
+    geometric rows float32 and their bool mask): for every step of
+    random orders, an epoch order, an order that lives wholly on one
+    rank and one whose every slice lives on another rank, each rank's
+    received rows are bitwise union[idx_r] of every array, where idx_r is
+    its slice of the step's global minibatch; each rank holds 1/W of the
+    set's bytes."""
+    rng = np.random.default_rng(21)
+    n = 3 * N_LOCAL
+    z = dict(x=rng.integers(0, 256, (n, 6, 5, 1), dtype=np.uint8),
+             y=rng.normal(size=(n, 16)).astype(np.float32),
+             rows=rng.normal(size=(n, 4, 6)).astype(np.float32),
+             mask=rng.uniform(size=(n, 4)) < 0.5, n_local=N_LOCAL)
+    for world in (2, 3):
+        for name, order in _exchange_orders(rng, world).items():
+            z[f"order_w{world}_{name}"] = order
+    np.savez(tmp_path / "exchange_in.npz", **z)
+    res = _run_ranks("exchange", str(tmp_path), worlds=(2, 3))
+    for world in (2, 3):
+        per = EXCHANGE_BATCH // world
+        total = sum(z[k][:world * N_LOCAL].nbytes
+                    for k in ("x", "y", "rows", "mask"))
+        for r in range(world):
+            got = res[(world, r)]
+            assert int(got["nbytes"]) * world == total
+            orders = [k for k in z if k.startswith(f"order_w{world}_")]
+            assert len(orders) == 4
+            for name in orders:
+                idx = z[name][:, r * per:(r + 1) * per].reshape(-1)
+                for key in ("x", "y", "rows", "mask"):
+                    want = z[key][:world * N_LOCAL][idx]
+                    np.testing.assert_array_equal(
+                        got[f"{name}_{key}"], want,
+                        err_msg=f"W={world} rank {r} {name} {key}")
+                    assert got[f"{name}_{key}"].dtype == want.dtype
+
+
+def test_sharded_set_beyond_one_budget_trains(tmp_path):
+    """With `train_network`'s card budget set to what one rank's shard and
+    val shard take, a set whose union would not fit one rank trains on 2
+    gloo ranks: each rank holds its half, the losses are finite and the
+    global steps run (32 frames at b=8 global: 4 steps)."""
+    from spnet_tpu_torch.train import loop
+
+    rng = np.random.default_rng(12)
+    cfg = ExperimentConfig(
+        model=ModelConfig(backbone="MobileNetTiny", input_size=64,
+                          compute_dtype="float32"),
+        train=TrainConfig(batch_size=8, epochs=1, seed=3, lr_max=1e-5))
+    (tmp_path / "loop_cfg.json").write_text(cfg.to_json())
+    z = dict(x=rng.integers(0, 256, (32, 64, 64, 1), dtype=np.uint8),
+             y=_labels(rng, 32), names=np.array([f"t{i}" for i in range(32)]),
+             vx=rng.integers(0, 256, (16, 64, 64, 1), dtype=np.uint8),
+             vy=_labels(rng, 16),
+             vnames=np.array([f"v{i}" for i in range(16)]))
+    np.savez(tmp_path / "loop_in.npz", **z)
+    res = _run_ranks("budget", str(tmp_path))
+    whole = Dataset(x=z["x"], y=z["y"], grid=cfg.grid,
+                    file_list=list(z["names"]))
+    val = Dataset(x=z["vx"][:8], y=z["vy"][:8], grid=cfg.grid,
+                  file_list=list(z["vnames"][:8]))
+    for r in range(2):
+        got = res[(2, r)]
+        # one rank's budget cannot hold the union with its val shard
+        assert loop._resident_bytes(whole, val, False) > int(got["budget"])
+        assert int(got["resident_bytes"]) == (z["x"].nbytes
+                                              + z["y"].nbytes) // 2
+        np.testing.assert_array_equal(got["resident_x"],
+                                      z["x"][r * 16:(r + 1) * 16])
+        assert np.isfinite(got["losses"]).all() and int(got["step"]) == 4
+    np.testing.assert_array_equal(res[(2, 0)]["losses"],
+                                  res[(2, 1)]["losses"])
 
 
 @pytest.mark.parametrize("launcher", ["spnet_env", "torchrun"])

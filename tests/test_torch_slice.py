@@ -217,8 +217,12 @@ def test_port_never_imports_jax():
         "'tools.sanity_train', 'tools.eval_breakdown', 'tools.eval_tta', "
         "'tools.movie_predict', 'tools.dataset_d', 'tools.dataset_d_prep', "
         "'tools.dataset_d_inflate', 'tools.eval_blur_split', "
-        "'tools.refgen_dataset', 'tools.refgen_run')]\n"
+        "'tools.refgen_dataset', 'tools.refgen_run', 'tools.profile_step', "
+        "'tools.keras_train_diff', 'tools.keras_h5_finetune')]\n"
         "assert 'tkinter' not in sys.modules\n"
+        # the Keras tools import tensorflow / keras only when they run
+        "assert 'tensorflow' not in sys.modules, 'tensorflow'\n"
+        "assert 'keras' not in sys.modules, 'keras'\n"
         "missing = [m for m in train if m not in sys.modules]\n"
         "assert not missing, missing\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
@@ -262,7 +266,8 @@ def test_port_never_names_the_jax_package(where):
             "runtime", "synth_cache", "dataset_a", "sanity_train",
             "eval_breakdown", "eval_tta", "movie_predict", "dataset_d",
             "dataset_d_prep", "dataset_d_inflate", "eval_blur_split",
-            "refgen_dataset", "refgen_run")
+            "refgen_dataset", "refgen_run", "profile_step",
+            "keras_train_diff", "keras_h5_finetune")
         } <= set(files)
     bad = sorted((os.path.relpath(f, ROOT), m) for f in files
                  for m in _imported_modules(f)
