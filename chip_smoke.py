@@ -238,14 +238,24 @@ check raises and the run exits non-zero:
                augmentation on, as two epochs of 4 with `unfreeze` between
                (freeze_fac 0.5 before it, so the graph is captured again
                after it): losses, parameters, BN statistics, Adam moments
-               and counts bitwise equal; K2 / K3 (and the 'ss' variant's)
-               launches = the warm-up steps and the captured step of each
+               and counts bitwise equal, and so between two eager runs
+               (cuDNN deterministic makes them so: the pools' backward
+               passes gather, with no atomics); K2 / K3 (and the 'ss'
+               variant's) launches = the warm-up steps and the captured
+               step of each
                capture; capture seconds; both ways, the peak of
                `max_memory_allocated` above what was in use before the run
                and the reserved memory `empty_cache` cannot free that the
                run added (the graph's private pool); then train images/s
                both ways in turns (graph, eager, eager, graph; 32 steps an
-               epoch at b=16, 16 at b=128).
+               epoch at b=16 and b=32, 16 at b=128).  (b) The same pair
+               for DarkNet19, InceptionResNetV2, MobileNet and
+               NASNetMobile at 331, bf16 with f32 params, b=32 (the
+               25-epoch sweep's batch) on the same 256 frames: every
+               leaf bitwise as above; K2 = K3 = 6 launches a pair (2
+               warm-up steps + 1 captured step, twice), so
+               `epoch_launches` holds 8 pairs of 6; capture seconds, peak
+               and held memory, images/s in turns; 20(b)'s seconds.
   21. dataset_d - the Dataset-D tools through their `main`, at a small
                depth and full width, in a temporary directory:
                `dataset_d_prep 48 16 4` (gen-fake-espi's native PNG frames,
@@ -289,7 +299,8 @@ those of phase 16, `bench_launches` and `native_launches` those of phases
 17 and 18; K1 adds its native b=16 batch's `native_ms`, `native_plain_ms`,
 `native_bound_ms` and `native_library_ms`; K1-K3 add
 `validation_launches`, each tool's count in phase 19; K2-K3 add
-`epoch_launches`, phase 20's graphed runs, and K2 `epoch_ss_launches`;
+`epoch_launches`, phase 20's graphed runs (Xception's four and 20(b)'s
+four backbones), and K2 `epoch_ss_launches`;
 K1-K3 add `dataset_d_launches`, phase 21's runs, `refgen_launches`,
 phase 22's, and `profile_launches`, phase 23's; K2 `profile_trace_calls`,
 the loss kernel's calls in each phase-23 trace);
@@ -3400,8 +3411,11 @@ EPOCH_FRAMES = 256        # phase 20's resident frames
 EPOCH_BATCHES = (16, 128)
 EPOCH_STEPS, EPOCH_SPLIT = 8, 4  # steps of a pair run; unfreeze after 4
 EPOCH_FREEZE = 0.5        # freeze_fac of its first epoch
-EPOCH_TIMED = {16: 32, 128: 16}  # steps of a timed epoch, by batch
+EPOCH_TIMED = {16: 32, 32: 32, 128: 16}  # steps of a timed epoch, by batch
 EPOCH_TURNS = ("graph", "eager", "eager", "graph")
+# phase 20(b): the other backbones at the 25-epoch sweep's batch
+EPOCH_ZOO = ("DarkNet19", "InceptionResNetV2", "MobileNet", "NASNetMobile")
+EPOCH_ZOO_BATCH = 32
 
 
 def _epoch_calls(steps: int) -> int:
@@ -3474,18 +3488,20 @@ def _epoch_pair(mc, b: int, data, seed: int, tag: str, smi: str) -> dict:
     model and generator seeds (`_epoch_trainer`): EPOCH_STEPS steps
     (augmentation on, the model's dropout) as two epochs of EPOCH_SPLIT
     with `unfreeze` between; losses, parameters, BN statistics, Adam
-    moments and counts must be bitwise equal.  Then both train on in turns
-    (EPOCH_TURNS, EPOCH_TIMED[b] steps an epoch, after one untimed graphed
-    epoch of that length, which captures again for its longer buffers):
-    images/s each way."""
+    moments and counts must be bitwise equal.  The eager steps run twice
+    (first, and after the graphed run), and the two runs must be bitwise
+    equal: the eager path's own determinism, which the pair relies on.
+    Then both train on in turns (EPOCH_TURNS, EPOCH_TIMED[b] steps an
+    epoch, after one untimed graphed epoch of that length, which captures
+    again for its longer buffers): images/s each way."""
     from spnet_tpu_torch.train.state import unfreeze
 
     rng = np.random.default_rng(seed)
     n = data[0].shape[0]
     idx = torch.from_numpy(rng.integers(0, n, (EPOCH_STEPS, b))).to(DEVICE)
     runs = {}
-    for form in ("graph", "eager"):
-        box, epoch, captures = _epoch_trainer(form, mc, data, seed)
+    for form in ("eager2", "graph", "eager"):
+        box, epoch, captures = _epoch_trainer(form[:5], mc, data, seed)
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         held0 = torch.cuda.memory_reserved() - torch.cuda.memory_allocated()
@@ -3508,6 +3524,16 @@ def _epoch_pair(mc, b: int, data, seed: int, tag: str, smi: str) -> dict:
         runs[form] = dict(state=box["state"], epoch=epoch, losses=losses,
                           counts=_counts(), seconds=seconds, peak_gib=peak,
                           held_gib=held, captures=list(captures))
+    e2 = runs.pop("eager2")
+    bad = _states_equal(e2["state"], runs["eager"]["state"])
+    same = torch.equal(e2["losses"], runs["eager"]["losses"])
+    print(f"[epoch] {tag} b={b}: eager against eager, {EPOCH_STEPS} steps: "
+          f"bitwise equal: losses {same}, every parameter, BN statistic, "
+          f"Adam moment and count {not bad} {bad[:5]}")
+    if not same or bad:
+        fail(f"epoch {tag} b={b}: two eager runs differ: losses {same}, "
+             f"leaves {bad[:10]}")
+    del e2
     g, e = runs["graph"], runs["eager"]
     bad = _states_equal(g["state"], e["state"])
     same = torch.equal(g["losses"], e["losses"])
@@ -3554,7 +3580,8 @@ def phase_epoch(seed: int, smi: str) -> dict:
     graph of the train step replayed once a minibatch) against the eager
     steps at full width, Xception-331 bf16 with f32 params, cuDNN
     deterministic: b=16 and b=128, the 'ss' head at b=16, and geometric
-    augmentation at b=16 (`_epoch_pair`)."""
+    augmentation at b=16 (`_epoch_pair`); (b) each of EPOCH_ZOO at 331,
+    bf16 with f32 params, b=EPOCH_ZOO_BATCH."""
     import dataclasses
 
     from spnet_tpu_torch.config import GridSpec, ModelConfig
@@ -3578,8 +3605,16 @@ def phase_epoch(seed: int, smi: str) -> dict:
             mc, selective_sigmoid=True), 16, (x, y), seed, "ss", smi)
         res["geo"] = _epoch_pair(mc, 16, (x, y, rows, mask), seed, "geo",
                                  smi)
+        t1 = time.perf_counter()
+        for backbone in EPOCH_ZOO:
+            res[backbone] = _epoch_pair(
+                dataclasses.replace(mc, backbone=backbone), EPOCH_ZOO_BATCH,
+                (x, y), seed, backbone, smi)
+        zoo_s = time.perf_counter() - t1
     finally:
         torch.backends.cudnn.deterministic = det
+    print(f"[epoch] phase 20(b), {', '.join(EPOCH_ZOO)} at "
+          f"b={EPOCH_ZOO_BATCH}, took {zoo_s:.1f} s")
     res["seconds"] = time.perf_counter() - t0
     print(f"[epoch] phase 20 took {res['seconds']:.1f} s")
     return res

@@ -112,6 +112,11 @@ CONFIG_CASES = {
     "defaults": ([], {}),
     "sweep25_xception": (["25", "32", "1e-4", "40960", "bfloat16", "331",
                           "Xception"], {}),
+    # the rest of JAX's 25-epoch backbone sweep (scripts/r4_queue*.sh)
+    **{f"sweep25_{bb.lower()}": (["25", "32", "1e-4", "40960", "bfloat16",
+                                  "331", bb], {})
+       for bb in ("DarkNet19", "InceptionResNetV2", "MobileNet",
+                  "NASNetMobile")},
     "native_remat_default": (["3", "8", "2e-4", "640", "float32", "0",
                               "MobileNetTiny"], {}),
     "native_remat_off": (["3", "8", "2e-4", "640", "float32", "0",
