@@ -1554,7 +1554,9 @@ def phase_tta(seed: int, smi: str) -> dict:
 # Phase 10: the synthetic feed and geometric training
 # ---------------------------------------------------------------------------
 SYNTH_TRAIN, SYNTH_VAL, GEO_REPEATS = 512, 256, 2
-GEO_STAGES = ("geo_augment", "grid_encode")
+#: the geo step's spans (`utils/profiling.py::span`) by their short names
+GEO_STAGES = {"spnet.step.geo_augment": "geo_augment",
+              "spnet.step.grid_encode": "grid_encode"}
 # the noise-free render, card vs CPU: share of pixels a float32 threshold
 # test may flip (the tests' bound against JAX)
 RENDER_FLIP_SHARE = 1e-3
@@ -1577,7 +1579,7 @@ def _sync_s(fn):
 
 def trace_summary(path: str) -> dict:
     """From a torch.profiler chrome trace: the device time of all kernels,
-    of the kernels launched inside each GEO_STAGES range (a launch's
+    of the kernels launched inside each GEO_STAGES span (a launch's
     correlation id joins the host call to its kernel), and the kernel
     names, in microseconds."""
     with open(path) as f:
@@ -1592,12 +1594,12 @@ def trace_summary(path: str) -> dict:
     launches = [e for e in events  # runtime and low-level API calls
                 if e.get("cat", "").startswith("cuda_")
                 and "correlation" in e.get("args", {})]
-    stages = {k: 0.0 for k in GEO_STAGES}
+    stages = {k: 0.0 for k in GEO_STAGES.values()}
     for a in events:
-        if a.get("cat") != "user_annotation" or a.get("name") not in stages:
+        if a.get("cat") != "cpu_op" or a.get("name") not in GEO_STAGES:
             continue
         t0, t1 = a["ts"], a["ts"] + a["dur"]
-        stages[a["name"]] += sum(
+        stages[GEO_STAGES[a["name"]]] += sum(
             kernels.get(c["args"]["correlation"], 0.0) for c in launches
             if c.get("tid") == a.get("tid") and t0 <= c["ts"] <= t1)
     return dict(total_us=sum(kernels.values()), stages_us=stages,

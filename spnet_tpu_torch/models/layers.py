@@ -26,6 +26,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from spnet_tpu_torch.parallel import mesh
+from spnet_tpu_torch.utils.profiling import span
 
 from spnet_tpu_torch.ops.sepconv import (
     fold_bn,
@@ -311,7 +312,8 @@ class SeparableConvBN(nn.Module):
     tests can hold the kernel against it.  Every other variant (MobileNet's
     strided blocks with `bn_between` and ReLU6), and every variant in train
     mode, runs `F.relu` (when `relu_in`) and then the plain composition
-    (`_plain_forward`)."""
+    (`_plain_forward`).  Either path runs inside an `spnet.sepconv` span
+    (`utils/profiling.py::span`)."""
 
     def __init__(self, in_ch: int, features: int, stride: int = 1,
                  act: str = "", bn_between: bool = False,
@@ -330,13 +332,14 @@ class SeparableConvBN(nn.Module):
         self.relu, self.relu_in = act == "relu", relu_in
 
     def forward(self, x):
-        if self.training or not self.fused:
-            return self._plain_forward(F.relu(x) if self.relu_in else x)
-        scale, bias = self.bn.folded()
-        fn = sepconv_infer_torch if self.plain else sepconv_infer
-        return fn(x.contiguous(), self.depthwise.weight,
-                  self.pointwise.weight.to(x.dtype), scale, bias,
-                  relu=self.relu, relu_in=self.relu_in)
+        with span("spnet.sepconv"):
+            if self.training or not self.fused:
+                return self._plain_forward(F.relu(x) if self.relu_in else x)
+            scale, bias = self.bn.folded()
+            fn = sepconv_infer_torch if self.plain else sepconv_infer
+            return fn(x.contiguous(), self.depthwise.weight,
+                      self.pointwise.weight.to(x.dtype), scale, bias,
+                      relu=self.relu, relu_in=self.relu_in)
 
     def _plain_forward(self, x):
         """Depthwise conv with TF SAME pads (cuDNN on the card) [-> BN ->

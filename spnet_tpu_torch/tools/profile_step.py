@@ -28,10 +28,10 @@ synchronize.  From the trace's device events (kernels, copies, sets):
   * eager only: the top aten ops by self device time (PERF.md's older
     tables are by op), and the device time of the kernels launched inside
     BatchNorm forwards (each `BatchNorm` module's forward runs inside a
-    `record_function` range that this tool's hooks open and close; the
-    model is unchanged).  Inside a graph replay no such range exists, so
-    the epoch form reports classes only: BatchNorm is spread over the
-    reduction and elementwise classes.
+    `BN_RANGE` span, `utils/profiling.py::span`, that this tool's hooks
+    open and close; the model is unchanged).  Inside a graph replay no
+    such range exists, so the epoch form reports classes only: BatchNorm
+    is spread over the reduction and elementwise classes.
 
 The epoch form checks that the trace sees inside the replays: the loss
 kernel must show one call a step, or the tool raises.  On the CPU (the
@@ -59,11 +59,11 @@ from spnet_tpu_torch.tools.runtime import card, tool_device
 from spnet_tpu_torch.train.schedule import onecycle_schedule
 from spnet_tpu_torch.train.state import create_train_state
 from spnet_tpu_torch.train.steps import make_train_epoch, make_train_step
-from spnet_tpu_torch.utils.profiling import annotate, trace
+from spnet_tpu_torch.utils.profiling import span, trace
 
 FORMS = ("epoch", "eager")
 WINDOW = "profile_step.window"
-BN_RANGE = "BatchNorm"
+BN_RANGE = "spnet.profile_step.batchnorm"
 LOGDIR = "logs/profile_step_torch"
 TOP_KERNELS = 25
 TOP_OPS = 15
@@ -122,12 +122,12 @@ def _setup(batch: int, steps: int, device: torch.device, backbone: str,
 
 
 def _bn_ranges(model: torch.nn.Module) -> list:
-    """Hooks that open a `BN_RANGE` record_function range before each
-    BatchNorm forward and close it after; returns their handles."""
+    """Hooks that open a `BN_RANGE` span before each BatchNorm forward and
+    close it after; returns their handles."""
     open_ranges = []
 
     def enter(_m, _inp):
-        rf = torch.profiler.record_function(BN_RANGE)
+        rf = span(BN_RANGE)
         rf.__enter__()
         open_ranges.append(rf)
 
@@ -176,12 +176,14 @@ def summarize(trace_path: str, prof, on_card: bool, steps: int,
         busy = _union_us((max(e["ts"], w0), min(e["ts"] + e["dur"], w1))
                          for e in dev if e["ts"] < w1 and e["ts"]
                          + e["dur"] > w0)
-    else:  # the CPU's kernels: the aten ops, by self time
+    else:  # the CPU's kernels: the aten ops, by self time; busy: the
+        # host ops, not the spans around them
         kernels = {a.key: [_self_time_us(a)[1], a.count]
                    for a in prof.key_averages()
                    if a.key.startswith("aten::")}
         busy = _union_us((e["ts"], e["ts"] + e["dur"]) for e in events
-                         if e.get("cat") == "cpu_op" and "dur" in e)
+                         if e.get("cat") == "cpu_op" and "dur" in e
+                         and not e["name"].startswith("spnet."))
     total = sum(v[0] for v in kernels.values())
     classes = {c: 0.0 for c in CLASS_NAMES}
     for name, (us, _) in kernels.items():
@@ -220,7 +222,7 @@ def _bn_us(events, on_card: bool) -> float:
     """Device time of the kernels launched inside the BatchNorm ranges (a
     launch's correlation id joins the host call to its kernel); on the
     CPU, the ranges' own time."""
-    ranges = [e for e in events if e.get("cat") == "user_annotation"
+    ranges = [e for e in events if e.get("cat") == "cpu_op"
               and e.get("name") == BN_RANGE]
     if not on_card:
         return float(sum(e["dur"] for e in ranges))
@@ -316,7 +318,7 @@ def run(batch: int = 128, form: str = "epoch", steps: int = 5, *,
         out_dir = os.path.join(logdir, f"{form}_b{batch}_{device.type}")
         shutil.rmtree(out_dir, ignore_errors=True)
         with trace(out_dir) as prof:
-            with annotate(WINDOW):
+            with torch.profiler.record_function(WINDOW):
                 losses = steps_run()
                 sync()
     finally:

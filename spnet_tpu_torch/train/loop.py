@@ -34,8 +34,10 @@ feeds (`device_data`):
   * frozen phase -> unfreeze is an optimizer swap (`train/state.py`);
   * per epoch: a val sweep through the eval-mode model (the fused
     separable-conv kernel on the card), component losses, confusion and
-    ring metrics, `losses.dat`, `progress.png`, overlays, TensorBoard
-    scalars and the overlay image (`use_tb`, into `<log_dir>/tb`), and a
+    ring metrics, the epoch form's captures and their host seconds (in
+    the epoch line, so a recapture shows; the history keeps JAX's keys),
+    `losses.dat`, `progress.png`, overlays, TensorBoard scalars and the
+    overlay image (`use_tb`, into `<log_dir>/tb`), and a
     checkpoint every `save_every` epochs and at the last one, with
     auto-resume from it.
 
@@ -86,6 +88,7 @@ from spnet_tpu_torch.train.schedule import onecycle_schedule
 from spnet_tpu_torch.train.state import create_train_state, unfreeze
 from spnet_tpu_torch.train.steps import make_predict_step, \
     make_train_epoch, make_train_step
+from spnet_tpu_torch.utils.profiling import span
 
 #: Share of the card's memory the resident train + val frames and labels
 #: may take (and the chunked feed's chunks + val frames); the rest is left
@@ -103,26 +106,34 @@ def predict_in_batches(predict_fn, x, batch_size: int,
     runs outside the timed window, as in JAX where the first dispatch
     compiles.  All batches are enqueued before any result is copied back,
     and the window ends with the last host copy (`.cpu()`), so FPS counts
-    the device work, not launches.  Returns (y (N, num_outputs) float32
-    numpy, frames per second)."""
+    the device work, not launches.  Its host phases are spans
+    (`utils/profiling.py::span`), leaves that do not overlap:
+    `spnet.predict.warmup`, then per batch `spnet.predict.copy_in` (the
+    slice, the copy to the device, the padding) and
+    `spnet.predict.forward`, then `spnet.predict.copy_out`.  Returns
+    (y (N, num_outputs) float32 numpy, frames per second)."""
     device = torch.device(device)
     m = x.shape[0]
     xt = torch.as_tensor(x)
-    wb = torch.zeros((batch_size,) + tuple(xt.shape[1:]), dtype=xt.dtype,
-                     device=device)
-    predict_fn(wb).cpu()
+    with span("spnet.predict.warmup"):
+        wb = torch.zeros((batch_size,) + tuple(xt.shape[1:]),
+                         dtype=xt.dtype, device=device)
+        predict_fn(wb).cpu()
     start = time.perf_counter()
     outs, trims = [], []
     for s in range(0, m, batch_size):
-        xb = xt[s : s + batch_size].to(device, non_blocking=True)
-        trim = xb.shape[0]
-        if trim < batch_size:  # pad the final partial batch
-            xb = torch.cat([xb, xb.new_zeros((batch_size - trim,)
-                                             + tuple(xb.shape[1:]))])
-        outs.append(predict_fn(xb))
+        with span("spnet.predict.copy_in"):
+            xb = xt[s : s + batch_size].to(device, non_blocking=True)
+            trim = xb.shape[0]
+            if trim < batch_size:  # pad the final partial batch
+                xb = torch.cat([xb, xb.new_zeros((batch_size - trim,)
+                                                 + tuple(xb.shape[1:]))])
+        with span("spnet.predict.forward"):
+            outs.append(predict_fn(xb))
         trims.append(trim)
-    y = np.concatenate([o.cpu().float().numpy()[:t]
-                        for o, t in zip(outs, trims)])
+    with span("spnet.predict.copy_out"):
+        y = np.concatenate([o.cpu().float().numpy()[:t]
+                            for o, t in zip(outs, trims)])
     elapsed = time.perf_counter() - start
     fps = m / max(elapsed, 1e-9)
     if verbose:
@@ -215,6 +226,12 @@ def _pick_feed(device_data, train_ds: Dataset, val_ds: Dataset,
         fits = _resident_bytes(train_ds, val_ds, geo) <= _budget(device)
         device_data = True if fits else "chunked"
     return device_data
+
+
+def _capture_seconds(train_epoch) -> list:
+    """The host seconds of each capture the epoch form has made (none
+    where an epoch runs another way)."""
+    return list(getattr(train_epoch, "capture_seconds", ()))
 
 
 def train_network(cfg: ExperimentConfig, train_ds: Dataset,
@@ -344,6 +361,8 @@ def train_network(cfg: ExperimentConfig, train_ds: Dataset,
     gen = torch.Generator(device=device)
     for epoch in range(start_epoch, tc.epochs):
         t0 = time.perf_counter()
+        # the epoch form's captures so far: a recapture shows in the epoch
+        n_cap = len(_capture_seconds(train_epoch))
         gen.manual_seed(tc.seed * 1_000_003 + epoch)
         if device_data == "chunked":
             loss_sum, nb = 0.0, 0
@@ -379,6 +398,7 @@ def train_network(cfg: ExperimentConfig, train_ds: Dataset,
             ep_loss = float(losses.mean())  # the one sync
         train_time = time.perf_counter() - t0
         img_per_sec = nb * tc.batch_size / max(train_time, 1e-9)
+        captures = _capture_seconds(train_epoch)[n_cap:]
 
         # ---- unfreeze transition (reference `train_spnet.py:74-78`) ----
         if tc.freeze_fac > 0 and frozen_left > 0:
@@ -420,6 +440,8 @@ def train_network(cfg: ExperimentConfig, train_ds: Dataset,
                   f"class_acc {st.class_acc:.2f}%  "
                   f"pix_err {st.mean_pix_err:.2f}  "
                   f"{img_per_sec:.1f} img/s  val_fps {fps:.0f}"
+                  + (f"  captures {len(captures)} ({sum(captures):.2f}s)"
+                     if train_epoch is not None else "")
                   + (f"  [rank {mesh.rank()}/{n_ranks}, its val shard]"
                      if n_ranks > 1 else ""))
         if main:  # rank 0 alone writes (the state is replicated)

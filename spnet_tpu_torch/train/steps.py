@@ -39,7 +39,7 @@ from spnet_tpu_torch.ops.losses import loss_components, spnet_loss, \
 from spnet_tpu_torch.config import GridSpec, LossWeights
 from spnet_tpu_torch.parallel import mesh
 from spnet_tpu_torch.train.schedule import schedule_table
-from spnet_tpu_torch.utils.profiling import annotate
+from spnet_tpu_torch.utils.profiling import span
 
 
 def _prep_x(x):
@@ -187,11 +187,11 @@ def make_train_step(model: nn.Module,
         m.train()
         x = _prep_x(x)
         if geo_augment:
-            with annotate("geo_augment"):
+            with span("spnet.step.geo_augment"):
                 x, rows = aug_ops.geo_augment_batch(
                     x, rows, mask, generator,
                     img_w=grid.img_width, img_h=grid.img_height)
-            with annotate("grid_encode"):
+            with span("spnet.step.grid_encode"):
                 y = encode_batch_device(rows, mask, grid)
         if augment:
             x = aug_ops.augment_on_the_fly(x, generator, blur_prob=blur_prob)
@@ -317,7 +317,12 @@ def make_train_epoch(train_step, geo_augment: bool = False):
     the data, the generator or the batch size change, or an epoch has more
     rows than the graph's buffers.  A failed capture or replay raises.  On
     the CPU the same step runs once a row from Python.  The returned
-    function's `capture_seconds` lists the host seconds of each capture."""
+    function's `capture_seconds` lists the host seconds of each capture.
+    A call's host phases are spans (`utils/profiling.py::span`):
+    `spnet.epoch.prepare` (the buffers and the index and learning-rate
+    copies), `spnet.epoch.capture` (the eager warm-up steps and the
+    capture; on the card, when there is no graph) and `spnet.epoch.run`
+    (the replays; on the CPU the steps)."""
     cache: dict = {}
     capture_seconds: list = []
 
@@ -341,36 +346,40 @@ def make_train_epoch(train_step, geo_augment: bool = False):
     def replay(body, steps: int, generator, device) -> None:
         row = 0
         if cache["graph"] is None:
-            stream = capture_stream(device)
-            current = torch.cuda.current_stream(device)
-            stream.wait_stream(current)
-            with torch.cuda.stream(stream):
-                while cache["warm"] < WARMUP_STEPS and row < steps:
-                    body()
-                    row += 1
-                    cache["warm"] += 1
-                if row < steps:
-                    t0 = time.perf_counter()
-                    graph = torch.cuda.CUDAGraph()
-                    if generator is not None:  # a step that draws nothing
-                        graph.register_generator_state(generator)
-                    with torch.cuda.graph(graph, stream=stream):
+            with span("spnet.epoch.capture"):
+                stream = capture_stream(device)
+                current = torch.cuda.current_stream(device)
+                stream.wait_stream(current)
+                with torch.cuda.stream(stream):
+                    while cache["warm"] < WARMUP_STEPS and row < steps:
                         body()
-                    cache["graph"] = graph
-                    capture_seconds.append(time.perf_counter() - t0)
-            current.wait_stream(stream)
-        for _ in range(row, steps):
-            cache["graph"].replay()
+                        row += 1
+                        cache["warm"] += 1
+                    if row < steps:
+                        t0 = time.perf_counter()
+                        graph = torch.cuda.CUDAGraph()
+                        # a step that draws nothing has no generator
+                        if generator is not None:
+                            graph.register_generator_state(generator)
+                        with torch.cuda.graph(graph, stream=stream):
+                            body()
+                        cache["graph"] = graph
+                        capture_seconds.append(time.perf_counter() - t0)
+                current.wait_stream(stream)
+        with span("spnet.epoch.run"):
+            for _ in range(row, steps):
+                cache["graph"].replay()
 
     def run(state, data, idx_mat, generator):
         steps, b = idx_mat.shape
         device = idx_mat.device
         step0, count0 = state.step, state.opt_state.count
-        buf = buffers(state, data, generator, steps, b, device)
-        buf["idx"][:steps].copy_(idx_mat)
-        buf["lr"][:steps].copy_(torch.from_numpy(
-            schedule_table(state.schedule, count0, steps)))
-        buf["row"].zero_()
+        with span("spnet.epoch.prepare"):
+            buf = buffers(state, data, generator, steps, b, device)
+            buf["idx"][:steps].copy_(idx_mat)
+            buf["lr"][:steps].copy_(torch.from_numpy(
+                schedule_table(state.schedule, count0, steps)))
+            buf["row"].zero_()
 
         def body():
             idx = buf["idx"].index_select(0, buf["row"]).view(b)
@@ -383,8 +392,9 @@ def make_train_epoch(train_step, geo_augment: bool = False):
             if device.type == "cuda":
                 replay(body, steps, generator, device)
             else:
-                for _ in range(steps):
-                    body()
+                with span("spnet.epoch.run"):
+                    for _ in range(steps):
+                        body()
         finally:
             state.lr_feed = None
         # the host ints: a capture ran the step's host side once more,

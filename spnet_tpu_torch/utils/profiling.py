@@ -7,18 +7,22 @@ Counterpart of `spnet_tpu/utils/profiling.py`:
     a TensorBoard-loadable trace (`tensorboard_trace_handler`: one
     `*.pt.trace.json` per run, also readable by chrome://tracing and
     Perfetto) into `logdir`.
-  * `annotate(name)` — a named `torch.profiler.record_function` range, so
-    train phases (the geometric augmentation, the label encode) are
-    visible in the trace timeline and in `key_averages()`.
-  * `Throughput` — rolling images/sec meter for the hot loop.
+  * `span(name)` — a named host range of the program's own phases.  While
+    a torch profiler records (`train --profile`, `trace`, a benchmark's
+    traced run) it is a function-scope record function, which the trace
+    exports as a `cpu_op` event on the clock of the kernels and their
+    launches; otherwise it is one shared no-op context, so an untraced
+    run pays a flag check a span.  The program's spans are named
+    `spnet.<layer>.<phase>`.
 """
 
 from __future__ import annotations
 
 import contextlib
-import time
 
 import torch
+from torch._C._profiler import _RecordFunctionFast
+from torch.autograd import profiler as _autograd_profiler
 
 
 @contextlib.contextmanager
@@ -36,28 +40,13 @@ def trace(logdir: str = "logs/profile"):
         yield prof
 
 
-def annotate(name: str):
-    """Named region that shows up on the profiler timeline."""
-    return torch.profiler.record_function(name)
+#: the span of an untraced run, shared: it records nothing
+_OFF = contextlib.nullcontext()
 
 
-class Throughput:
-    """Rolling throughput meter: call update(n_items) per step."""
-
-    def __init__(self, window: int = 50):
-        self.window = window
-        self._events: list[tuple[float, int]] = []
-
-    def update(self, n_items: int) -> None:
-        now = time.time()
-        self._events.append((now, n_items))
-        if len(self._events) > self.window:
-            self._events.pop(0)
-
-    @property
-    def rate(self) -> float:
-        if len(self._events) < 2:
-            return 0.0
-        dt = self._events[-1][0] - self._events[0][0]
-        items = sum(n for _, n in self._events[1:])
-        return items / dt if dt > 0 else 0.0
+def span(name: str):
+    """A host range named `name` in the profiler's trace while a profiler
+    records; else the shared no-op context."""
+    if _autograd_profiler._is_profiler_enabled:
+        return _RecordFunctionFast(name)
+    return _OFF

@@ -402,7 +402,7 @@ def test_cli_gen_fake_espi_then_train_geo_tb_profile(tmp_path):
     import json
 
     names = {e.get("name") for e in json.load(open(traces[0]))["traceEvents"]}
-    assert {"geo_augment", "grid_encode"} <= names
+    assert {"spnet.step.geo_augment", "spnet.step.grid_encode"} <= names
     payload, cfg = load_checkpoint(str(tmp_path / "ck"))
     assert payload["step"] == 10 and cfg.train.geo_augment
     assert cfg.train.epoch_repeats == 2 and cfg.train.use_tb
