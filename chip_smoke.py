@@ -243,7 +243,8 @@ check raises and the run exits non-zero:
                passes gather, with no atomics); K2 / K3 (and the 'ss'
                variant's) launches = the warm-up steps and the captured
                step of each
-               capture; capture seconds; both ways, the peak of
+               capture (the BatchNorm kernels' too); capture seconds;
+               both ways, the peak of
                `max_memory_allocated` above what was in use before the run
                and the reserved memory `empty_cache` cannot free that the
                run added (the graph's private pool); then train images/s
@@ -287,10 +288,25 @@ check raises and the run exits non-zero:
                loss kernel 5 times inside the graph replays (else the tool
                raises); the class sums add up to the total; each run's
                K1-K3 launches (the replays pass no wrapper).
+  24. batchnorm - the train-mode BatchNorm kernels (`csrc/batchnorm.cu`,
+               `ops/batchnorm.py`) at each distinct BatchNorm call of
+               Xception-331's b=16 train step (shape and the activation
+               the layer applies, recorded by hooks on one forward) and at
+               four more shapes, bf16: the output bitwise the plain
+               arithmetic from the kernels' statistics; against the plain
+               composition output and dx within 2e-2 of their scale, the
+               running statistics' update within 1e-3, dscale and dbias
+               within 1e-4 of their terms' magnitudes (and the terms
+               whose activation mask differs); six launches a forward
+               and backward; device ms forward and forward + backward of
+               the kernels, the plain composition and the library's
+               `F.batch_norm` with the activation (CUDA graphs of 20
+               calls), the bound of 10 bytes an element, and their sums
+               over the step.
 
-Every model path runs with all five launch counts (and the loss kernel's
-count of 'ss' launches) set to 0 just before it and checks them all just
-after.  The line before the last is the kernels' JSON record (for K2-K4
+Every model path runs with all six launch counts (K1-K4's and the
+BatchNorm kernels', and the loss kernel's count of 'ss' launches) set to 0
+just before it and checks them all just after (`_want_counts`).  The line before the last is the kernels' JSON record (for K2-K4
 `ms` is the graph-timed device time at 128 x 576, beside `call_ms`,
 `host_us` and `floor_ms`; K2 adds `ss_fused_ms` and `ss_launches`;
 `feeds_launches`, `remat_launches`, `pretrained_launches` and
@@ -303,7 +319,9 @@ those of phase 16, `bench_launches` and `native_launches` those of phases
 four backbones), and K2 `epoch_ss_launches`;
 K1-K3 add `dataset_d_launches`, phase 21's runs, `refgen_launches`,
 phase 22's, and `profile_launches`, phase 23's; K2 `profile_trace_calls`,
-the loss kernel's calls in each phase-23 trace);
+the loss kernel's calls in each phase-23 trace); `batchnorm_train` has
+phase 24's step sums (`library_ms`: `F.batch_norm`) and the counts of
+every train path as K2 has them;
 the last line is
 `{"ok": true, "device": {...}}`.  Exits
 non-zero without a result when no CUDA device is available.  Needs torch
@@ -313,6 +331,7 @@ and numpy, no jax; phase 10 writes and reads PNG files with PIL.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 import shutil
@@ -723,12 +742,13 @@ def _wrappers() -> dict:
     in `.launches`."""
     from spnet_tpu_torch.ops.activations import selective_sigmoid_bwd, \
         selective_sigmoid_fwd
+    from spnet_tpu_torch.ops.batchnorm import batchnorm_train
     from spnet_tpu_torch.ops.losses import spnet_loss_bwd, spnet_loss_fwd
     from spnet_tpu_torch.ops.sepconv import sepconv_infer
 
     return {f.__name__: f for f in (
         sepconv_infer, spnet_loss_fwd, spnet_loss_bwd,
-        selective_sigmoid_fwd, selective_sigmoid_bwd)}
+        selective_sigmoid_fwd, selective_sigmoid_bwd, batchnorm_train)}
 
 
 SS_COUNT = "spnet_loss_fwd[ss]"  # the loss kernel's launches with K4 in it
@@ -746,12 +766,46 @@ def _counts() -> dict:
     return counts
 
 
-def _want_counts(model_cfg, predict_batches=0, train_steps=0) -> dict:
+@functools.lru_cache(maxsize=None)
+def _bn_layers_of(backbone: str) -> tuple[int, int]:
+    """(BatchNorm layers of SPNet-`backbone`, those of them inside the
+    backbone): each runs once in a train-mode forward."""
+    from spnet_tpu_torch.models.layers import BatchNorm
+    from spnet_tpu_torch.models.spnet import BACKBONES, Stem
+
+    def count(module):
+        return sum(isinstance(m, BatchNorm) for m in module.modules())
+
+    inner = count(BACKBONES[backbone](False, (165, 165)))
+    return count(Stem()) + inner, inner
+
+
+def _bn_launches(model_cfg, steps: int, backward: bool = True,
+                 ranks: int = 1, remat: bool | None = None) -> int:
+    """The BatchNorm kernels' launches in `steps` train steps of a model of
+    `model_cfg`: a layer's forward launches 3 (stats, finalize, normalize)
+    and its backward 3 (sums, finalize, dx), 4 each inside a group of
+    ranks > 1 (the finalize before the all-reduce); with remat (default
+    `model_cfg.remat`) the backward runs the backbone's layers forward
+    once more.  backward=False counts the forwards alone: a gradient with
+    respect to the head alone runs none of the layers' backward."""
+    if not steps:
+        return 0
+    n, inner = _bn_layers_of(model_cfg.backbone)
+    remat = model_cfg.remat if remat is None else remat
+    way = 4 if ranks > 1 else 3
+    return steps * way * (n + backward * (n + remat * inner))
+
+
+def _want_counts(model_cfg, predict_batches=0, train_steps=0,
+                 bn_backward=True, ranks=1) -> dict:
     """Launches of each kernel for `predict_batches` eval-mode batches and
-    `train_steps` train steps of a model of `model_cfg`: K1 carries
-    Xception's 34 separable convs in eval mode only, K2/K3 the train loss,
-    K4 the 'ss' head in eval mode; in a train step the loss kernel's 'ss'
-    variant carries K4 (forward and backward) in its own pass."""
+    `train_steps` train steps of a model of `model_cfg` (on each of
+    `ranks`): K1 carries Xception's 34 separable convs in eval mode only,
+    K2/K3 the train loss, K4 the 'ss' head in eval mode; in a train step
+    the loss kernel's 'ss' variant carries K4 (forward and backward) in
+    its own pass; the BatchNorm kernels run in train mode only
+    (`_bn_launches`, with its `backward`)."""
     sep = SEPCONVS_PER_BATCH if model_cfg.backbone == "Xception" else 0
     ss = int(model_cfg.selective_sigmoid)
     return {"sepconv_infer": sep * predict_batches,
@@ -759,6 +813,8 @@ def _want_counts(model_cfg, predict_batches=0, train_steps=0) -> dict:
             "spnet_loss_bwd": train_steps,
             "selective_sigmoid_fwd": ss * predict_batches,
             "selective_sigmoid_bwd": 0,
+            "batchnorm_train": _bn_launches(model_cfg, train_steps,
+                                            bn_backward, ranks),
             SS_COUNT: ss * train_steps}
 
 
@@ -1291,7 +1347,8 @@ def phase_train(seed: int, smi: str) -> dict:
     _f32_step_agreement(ModelConfig(compute_dtype="float32"), x16, y16,
                         seed, "train", swap="loss")
     return dict(fwd_launches=counts["spnet_loss_fwd"],
-                bwd_launches=counts["spnet_loss_bwd"], img_per_sec=img_s)
+                bwd_launches=counts["spnet_loss_bwd"],
+                bn_launches=counts["batchnorm_train"], img_per_sec=img_s)
 
 
 def phase_k4(seed: int, smi: str) -> dict:
@@ -1384,13 +1441,15 @@ def phase_heads(seed: int, smi: str) -> dict:
                                           loss_type=loss_type)
                 counts = _f32_step_agreement(f32, x16, y16, seed, tag,
                                              swap="model")
-                if counts != _want_counts(f32, train_steps=1):
+                if counts != _want_counts(f32, train_steps=1,
+                                          bn_backward=False):
                     fail(f"{tag}: f32 step launches {counts}")
             # fused=False: K4's own forward and backward on the model
             counts = _f32_step_agreement(f32, x16, y16, seed, tag,
                                          swap="model", fused=False)
             want = dict(_want_counts(f32), selective_sigmoid_fwd=1,
-                        selective_sigmoid_bwd=1)
+                        selective_sigmoid_bwd=1,
+                        batchnorm_train=_bn_launches(f32, 1, False))
             if counts != want:
                 fail(f"{tag}: f32 step with fused=False, launches {counts} "
                      f"!= {want}")
@@ -1478,7 +1537,8 @@ def phase_zoo(seed: int, smi: str) -> dict:
         step_counts = _f32_step_agreement(
             dataclasses.replace(cfg.model, compute_dtype="float32"), x16,
             y16, seed, tag, swap="loss")
-        if step_counts != _want_counts(cfg.model, train_steps=1):
+        if step_counts != _want_counts(cfg.model, train_steps=1,
+                                       bn_backward=False):
             fail(f"{tag}: f32 step launches {step_counts}")
         del x16, y16
         torch.cuda.empty_cache()
@@ -2206,8 +2266,12 @@ def phase_remat(seed: int, smi: str) -> dict:
     for remat in (False, True, True, False):
         res[remat].append(run(remat, REMAT_STEPS))
     counts = _counts()
-    if counts != _want_counts(cfg.model, train_steps=4 * REMAT_STEPS):
-        fail(f"remat: launches {counts}")
+    want = dict(_want_counts(cfg.model, train_steps=4 * REMAT_STEPS),
+                batchnorm_train=_bn_launches(cfg.model, 2 * REMAT_STEPS,
+                                             remat=False)
+                + _bn_launches(cfg.model, 2 * REMAT_STEPS, remat=True))
+    if counts != want:
+        fail(f"remat: launches {counts} != {want}")
     for remat, r in res.items():
         print(f"[remat] remat {remat}: step "
               f"{[round(ms, 2) for ms, _ in r]} ms, peak "
@@ -2981,7 +3045,7 @@ def _dp_two_ranks(seed: int, smi: str) -> dict:
     steps = 2 * (TRAIN_FRAMES // TRAIN_BATCH)
     val_batches = 2 * 2  # a val shard of VAL_FRAMES / 2 in one batch + warm-up
     want = _want_counts(ModelConfig(), predict_batches=val_batches,
-                        train_steps=steps)
+                        train_steps=steps, ranks=2)
     print(f"[dp] 2 gloo ranks on one card, b={TRAIN_BATCH} global "
           f"({TRAIN_BATCH // 2} a rank), 2 epochs of "
           f"{TRAIN_FRAMES // TRAIN_BATCH} steps, {seconds:.1f} s with the "
@@ -4075,8 +4139,222 @@ def phase_profile(seed: int, smi: str) -> dict:
     return res
 
 
+BN_BATCH = 16  # the train cell's batch
+# (shape, activation) timed besides the model's own layers: a map larger
+# than the L2, a middle-flow and an exit-flow map of a larger input, and
+# MobileNetTiny's 8-channel layers
+BN_EXTRA_SHAPES = [((16, 163, 163, 128), ""), ((16, 21, 21, 728), ""),
+                   ((16, 11, 11, 2048), "relu"), ((16, 83, 83, 8), "relu6")]
+
+
+def _bn_layers(backbone: str, b: int) -> dict:
+    """{(shape, act, scale, momentum): uses} of the train-mode BatchNorm
+    calls of SPNet-`backbone` at 331 and batch b, from forward pre-hooks
+    on one train-mode forward on the card (each call site hands its
+    activation to the layer positionally)."""
+    from spnet_tpu_torch.config import GridSpec, ModelConfig
+    from spnet_tpu_torch.models.layers import BatchNorm
+    from spnet_tpu_torch.models.spnet import build_model
+
+    model = build_model(ModelConfig(backbone=backbone),
+                        num_outputs=GridSpec().num_outputs, device=DEVICE,
+                        generator=torch.Generator().manual_seed(0)).train()
+    seen: dict = {}
+
+    def record(m, args):
+        key = (tuple(args[0].shape), args[1] if len(args) > 1 else "",
+               m.weight is not None, m.momentum)
+        seen[key] = seen.get(key, 0) + 1
+
+    hooks = [m.register_forward_pre_hook(record) for m in model.modules()
+             if isinstance(m, BatchNorm)]
+    with torch.no_grad():
+        model(torch.rand(b, 331, 331, 1, device=DEVICE),
+              torch.Generator(device=DEVICE).manual_seed(0))
+    for h in hooks:
+        h.remove()
+    del model
+    torch.cuda.empty_cache()
+    return seen
+
+
+def _bn_case(shape, act: str, scale: bool, momentum: float, seed: int):
+    """The kernels against the plain composition at one layer's shape,
+    bf16, each side with its own copy of the layer: the output bitwise the
+    twin's arithmetic from the kernels' statistics; the largest gaps to
+    the plain composition's output, dx and the running statistics' update
+    over their scales; dscale and dbias against the plain composition's
+    channel by channel (`ok_dparams`, see `phase_batchnorm`); launches of
+    one forward and backward; device ms of a forward and of a forward +
+    backward (`graph_ms`, gradients by `autograd.grad`, so nothing
+    accumulates) for the kernels, the plain composition and the library's
+    `F.batch_norm` on the channels-last view with the activation after
+    it; the bytes' bound."""
+    import copy
+
+    import torch.nn.functional as F
+
+    from spnet_tpu_torch.models.layers import ACTIVATIONS, BatchNorm
+    from spnet_tpu_torch.ops.batchnorm import _act_grad, batchnorm_train
+
+    c = shape[-1]
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    x = (torch.randn(shape, generator=g, device=DEVICE) * 1.5
+         + 0.3).bfloat16().requires_grad_(True)
+    dy = torch.randn(shape, generator=g, device=DEVICE).bfloat16()
+    bn = BatchNorm(c, momentum=momentum, scale=scale).to(DEVICE).train()
+    with torch.no_grad():
+        if scale:
+            bn.weight.uniform_(0.8, 1.2, generator=g)
+        bn.bias.uniform_(-0.3, 0.3, generator=g)
+        bn.running_mean.normal_(0.0, 0.1, generator=g)
+        bn.running_var.uniform_(0.5, 1.5, generator=g)
+    bp = copy.deepcopy(bn)  # the plain composition's layer
+    running0 = (bn.running_mean.clone(), bn.running_var.clone())
+    act_fn = ACTIVATIONS[act]
+
+    def forward(bn, x, kernel: bool):
+        return bn(x, act) if kernel else act_fn(bn.plain(x))
+
+    def library(bn, x):
+        y = F.batch_norm(x.permute(0, 3, 1, 2), None, None, bn.weight,
+                         bn.bias, training=True, eps=bn.eps)
+        return act_fn(y.permute(0, 2, 3, 1))
+
+    def leaves(bn, x):
+        return [t for t in (x, bn.weight, bn.bias) if t is not None]
+
+    def gap(a, b):
+        return float((a - b).detach().float().abs().max()
+                     / b.detach().float().abs().max())
+
+    n0 = batchnorm_train.launches
+    yk = forward(bn, x, True)
+    _, stats, _, _ = yk.grad_fn.saved_tensors
+    gk = torch.autograd.grad(yk, leaves(bn, x), dy)
+    launches = batchnorm_train.launches - n0
+    mean, rstd = stats.view(3, c)[0], stats.view(3, c)[1]
+    mul = rstd if bn.weight is None else rstd * bn.weight.detach()
+    twin = act_fn(((x.detach().float() - mean) * mul
+                   + bn.bias.detach()).to(x.dtype))
+    yp = forward(bp, x, False)
+    gp = torch.autograd.grad(yp, leaves(bp, x), dy)
+    rows = x.numel() // c
+    # dscale and dbias: the same float32 terms summed in other orders
+    # (1e-4 of the sum of their magnitudes), and where the two outputs'
+    # activation masks differ (statistics apart in their last bits put an
+    # output on the other side of a kink) that element's own term
+    ones = torch.ones_like(yk)
+    flips = (_act_grad(ones, yk.detach(), act)
+             != _act_grad(ones, yp.detach(), act)).reshape(rows, c)
+    d = dy.float().abs().reshape(rows, c)
+    terms = {-1: d}
+    if scale:
+        terms[1] = d * (x.detach().float().reshape(rows, c) - mean).abs() \
+            * rstd
+    ok = all(((gk[i] - gp[i]).abs() <= 1e-4 * t.sum(0)
+              + (t * flips).sum(0)).all() for i, t in terms.items())
+    upd = [(getattr(bn, k) - r0, getattr(bp, k) - r0) for k, r0 in
+           zip(("running_mean", "running_var"), running0)]
+    gaps = dict(y_gap=gap(yk, yp), dx_gap=gap(gk[0], gp[0]),
+                dbias_gap=gap(gk[-1], gp[-1]),
+                dscale_gap=gap(gk[1], gp[1]) if scale else 0.0,
+                mean_gap=gap(*upd[0]), var_gap=gap(*upd[1]))
+    # fresh leaves for the timings, first used on the capture stream (a
+    # leaf first used on the default stream ties a capture to it); the
+    # timed replays leave the running statistics
+    tb = copy.deepcopy(bn)
+    tb.update_stats = False
+    xt = x.detach().clone().requires_grad_(True)
+
+    def timed(route, backward: bool):
+        def fn():
+            y = route(tb, xt)
+            return torch.autograd.grad(y, leaves(tb, xt), dy) if backward \
+                else y
+        return graph_ms(fn, calls=20, replays=5)
+
+    def kernels(bn, x):
+        return forward(bn, x, True)
+
+    def plain(bn, x):
+        return forward(bn, x, False)
+
+    t = {"fwd_ms": timed(kernels, False), "ms": timed(kernels, True),
+         "plain_fwd_ms": timed(plain, False), "plain_ms": timed(plain, True),
+         "library_fwd_ms": timed(library, False),
+         "library_ms": timed(library, True)}
+    n = x.numel()
+    return dict(bitwise_twin=bool(torch.equal(yk, twin)), **gaps,
+                ok_dparams=bool(ok), flips=int(flips.sum()),
+                launches=launches, bound_ms=1e3 * 10 * n / HBM_BYTES_PER_S,
+                fwd_bound_ms=1e3 * 4 * n / HBM_BYTES_PER_S, **t)
+
+
+def phase_batchnorm(seed: int, smi: str) -> dict:
+    """Phase 24: the train-mode BatchNorm kernels (`ops/batchnorm.py`) at
+    every distinct BatchNorm call of Xception-331's train step at
+    b=BN_BATCH (shape, activation) and at BN_EXTRA_SHAPES, bf16, against
+    the plain composition: the output bitwise the twin's arithmetic from
+    the kernels' statistics; output and dx within 2e-2 of their scale (one
+    bf16 rounding, through up to 435,600-row float32 sums); the running
+    mean's and variance's update within 1e-3 of its scale (float32
+    statistics apart in their last bits, the update taken from values
+    near 1); dscale and dbias channel by channel within 1e-4 of the sum of
+    their terms' magnitudes, plus the terms of the elements whose
+    activation mask differs; six launches a forward and backward.  Device
+    ms of the kernels, of the plain composition and of the library's
+    batch norm (`F.batch_norm`, training, on the channels-last view, and
+    the activation), forward and forward + backward, against the bound of
+    10 bytes an element (x, y forward; x, dy, dx backward); summed over
+    the step's 43 calls."""
+    t0 = time.perf_counter()
+    layers = _bn_layers("Xception", BN_BATCH)
+    cases = [(k, uses) for k, uses in sorted(layers.items())]
+    cases += [((shape, act, True, 0.99), 0) for shape, act in
+              BN_EXTRA_SHAPES]
+    res = {"layers": [], "step": dict.fromkeys(
+        ("ms", "plain_ms", "library_ms", "bound_ms", "fwd_ms",
+         "plain_fwd_ms", "library_fwd_ms", "fwd_bound_ms"), 0.0),
+        "calls": sum(layers.values())}
+    for (shape, act, scale, momentum), uses in cases:
+        r = _bn_case(shape, act, scale, momentum, seed)
+        print(f"[batchnorm] {shape} act {act or 'none'!r} x{uses}: "
+              f"fwd+bwd {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, "
+              f"library {r['library_ms']:.4f}, bound {r['bound_ms']:.4f}), "
+              f"fwd {r['fwd_ms']:.4f} ms (plain {r['plain_fwd_ms']:.4f}, "
+              f"library {r['library_fwd_ms']:.4f}, bound "
+              f"{r['fwd_bound_ms']:.4f}); output bitwise the twin's "
+              f"{r['bitwise_twin']}, gap to the plain composition y "
+              f"{r['y_gap']:.2e}, dx {r['dx_gap']:.2e}, dscale "
+              f"{r['dscale_gap']:.2e}, dbias {r['dbias_gap']:.2e} (within "
+              f"their sums' tolerance {r['ok_dparams']}, {r['flips']} "
+              f"mask flips), running mean {r['mean_gap']:.2e}, var "
+              f"{r['var_gap']:.2e}; launches {r['launches']}  [{smi}]")
+        if not r["bitwise_twin"] or r["launches"] != 6 or \
+                not r["ok_dparams"] or \
+                not (r["y_gap"] <= 2e-2 and r["dx_gap"] <= 2e-2) or \
+                not (r["mean_gap"] <= 1e-3 and r["var_gap"] <= 1e-3):
+            fail(f"batchnorm {shape} {act!r}: {r}")
+        res["layers"].append(dict(shape=shape, act=act, uses=uses, **r))
+        for k in res["step"]:
+            res["step"][k] += uses * r[k]
+        torch.cuda.empty_cache()
+    st = res["step"]
+    print(f"[batchnorm] Xception-331 b={BN_BATCH}, {res['calls']} calls a "
+          f"step: fwd+bwd {st['ms']:.4f} ms (plain {st['plain_ms']:.4f}, "
+          f"library {st['library_ms']:.4f}, bound {st['bound_ms']:.4f}: "
+          f"{100 * st['bound_ms'] / st['ms']:.1f} % of bound), fwd "
+          f"{st['fwd_ms']:.4f} ms (plain {st['plain_fwd_ms']:.4f}, library "
+          f"{st['library_fwd_ms']:.4f}, bound {st['fwd_bound_ms']:.4f})  "
+          f"[{smi}]")
+    res["seconds"] = time.perf_counter() - t0
+    print(f"[batchnorm] phase 24 took {res['seconds']:.1f} s")
+    return res
+
+
 def _late_launches(name: str, feeds: dict, remat: dict, pre: dict) -> dict:
-    """A loss kernel's launches on the paths of phases 11, 12 and 14."""
+    """A train kernel's launches on the paths of phases 11, 12 and 14."""
     return dict(feeds_launches={f: feeds[f]["counts"][name] for f in FEEDS},
                 remat_launches=remat["counts"][name],
                 pretrained_launches=(pre["counts"][name] if pre["keras"]
@@ -4129,6 +4407,7 @@ def main(argv=None):
     dsd = phase_dataset_d(args.seed, smi)
     refgen = phase_refgen(args.seed, smi)
     profile = phase_profile(args.seed, smi)
+    bnk = phase_batchnorm(args.seed, smi)
     print(f"[done] {time.perf_counter() - t0:.1f} s after the device phase; "
           f"train {train['img_per_sec']:.1f} images/s at b={TRAIN_BATCH}; "
           f"zoo train images/s "
@@ -4312,6 +4591,36 @@ def main(argv=None):
         small("selective_sigmoid_bwd", k4_src, k4_at,
               heads["ss"]["k4_bwd_launches"],
               k4["bwd_err"], k4["bwd"], k4["bwd_plain"], 3 * n),
+        # phase 24: a b=16 Xception-331 train step's BatchNorm calls,
+        # forward + backward, summed (fwd_*: forward alone); launches:
+        # phase 6's first run, and each other path's as for K2
+        {"name": "batchnorm_train", "route": "cuda",
+         "source": "spnet_tpu_torch/csrc/batchnorm.cu", "replaces": None,
+         "launches": train["bn_launches"], "ms": bnk["step"]["ms"],
+         "plain_ms": bnk["step"]["plain_ms"],
+         "bound_ms": bnk["step"]["bound_ms"], "bound_by": "bytes",
+         "library_ms": bnk["step"]["library_ms"],
+         "fwd_ms": bnk["step"]["fwd_ms"],
+         "fwd_plain_ms": bnk["step"]["plain_fwd_ms"],
+         "fwd_library_ms": bnk["step"]["library_fwd_ms"],
+         "max_y_gap": max(r["y_gap"] for r in bnk["layers"]),
+         "max_dx_gap": max(r["dx_gap"] for r in bnk["layers"]),
+         "max_dscale_gap": max(r["dscale_gap"] for r in bnk["layers"]),
+         "max_dbias_gap": max(r["dbias_gap"] for r in bnk["layers"]),
+         "max_running_gap": max(max(r["mean_gap"], r["var_gap"])
+                                for r in bnk["layers"]),
+         "zoo_launches": {b: r["train_counts"]["batchnorm_train"]
+                          for b, r in zoo.items()},
+         "geo_launches": syn["train_counts"]["batchnorm_train"],
+         "dp_launches": dp_launches("batchnorm_train"),
+         "bench_launches": bench_launches("batchnorm_train"),
+         "native_launches": native_launches("batchnorm_train"),
+         "validation_launches": validation_launches("batchnorm_train"),
+         "epoch_launches": epoch_launches("batchnorm_train"),
+         "dataset_d_launches": dataset_d_launches("batchnorm_train"),
+         "refgen_launches": refgen_launches("batchnorm_train"),
+         "profile_launches": profile_launches("batchnorm_train"),
+         **_late_launches("batchnorm_train", feeds, remat, pre)},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

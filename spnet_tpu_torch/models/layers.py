@@ -28,6 +28,7 @@ from torch import nn
 from spnet_tpu_torch.parallel import mesh
 from spnet_tpu_torch.utils.profiling import span
 
+from spnet_tpu_torch.ops.batchnorm import ACTS, batchnorm_train
 from spnet_tpu_torch.ops.sepconv import (
     fold_bn,
     sepconv_infer,
@@ -108,7 +109,16 @@ class BatchNorm(nn.Module):
     train-mode statistics are the global batch's, as under JAX's mesh: the
     ranks' equal batches give their moments E[x] and E[x^2] to one
     all-reduce, so every rank normalizes alike and keeps the same running
-    statistics.  Without a group the arithmetic is unchanged."""
+    statistics.  Without a group the arithmetic is unchanged.
+
+    `forward(x, act)` also applies the activation `act` (a name of
+    `ACTIVATIONS`) that the calling module applies to the output.  In
+    train mode on a CUDA tensor the layer and its activation run as the
+    kernels of `ops/batchnorm.py::batchnorm_train` (a stats pass and a
+    normalize pass forward, a sums pass and a dx pass backward; no
+    fallback); everywhere else as `plain(x)` followed by the activation.
+    `plain` is flax's arithmetic as float32 torch ops: the kernels' twin,
+    and the only path on the CPU and in eval mode."""
 
     def __init__(self, features: int, eps: float = BN_EPS,
                  momentum: float = BN_MOMENTUM, scale: bool = True):
@@ -133,7 +143,13 @@ class BatchNorm(nn.Module):
         return fold_bn(self.weight, self.bias, self.running_mean,
                        self.running_var, self.eps)
 
-    def forward(self, x):
+    def forward(self, x, act: str = ""):
+        if self.training and x.device.type == "cuda":
+            return batchnorm_train(x, self, act)
+        return _activation(act)(self.plain(x))
+
+    def plain(self, x):
+        """The layer without its activation, as float32 torch ops."""
         xf = x.float()
         if self.training:
             dims = tuple(range(x.dim() - 1))
@@ -267,10 +283,10 @@ def mish(x):
     return x * torch.tanh(F.softplus(x))
 
 
-#: Activations a layer may end with, by name ("" = none).  ReLU6 is the
-#: JAX MobileNet's `min(relu(x), 6)`; "leaky" is DarkNet's LeakyReLU(0.1).
-ACTIVATIONS = {"": lambda x: x, "relu": F.relu, "relu6": F.relu6,
-               "leaky": leaky_relu_01}
+#: Activations a layer may end with, by name ("" = none): the names of
+#: `ops/batchnorm.py::ACTS`, in its order.  ReLU6 is the JAX MobileNet's
+#: `min(relu(x), 6)`; "leaky" is DarkNet's LeakyReLU(0.1).
+ACTIVATIONS = dict(zip(ACTS, (lambda x: x, F.relu, F.relu6, leaky_relu_01)))
 
 
 def _activation(act: str):
@@ -293,11 +309,11 @@ class ConvBN(nn.Module):
         self.conv = conv_kernel(in_ch, features, kernel)
         self.bn = BatchNorm(features, scale=bn_scale)
         self.stride, self.padding = stride, padding
-        self.act = _activation(act)
+        self.act = act
 
     def forward(self, x):
-        return self.act(self.bn(conv2d_nhwc(
-            x, self.conv.weight, self.stride, self.padding)))
+        return self.bn(conv2d_nhwc(x, self.conv.weight, self.stride,
+                                   self.padding), self.act)
 
 
 class SeparableConvBN(nn.Module):
@@ -327,7 +343,7 @@ class SeparableConvBN(nn.Module):
         self.pointwise = pointwise_kernel(in_ch, features)
         self.bn = BatchNorm(features)
         self.stride, self.bn_between, self.plain = stride, bn_between, plain
-        self.act = _activation(act)
+        self.act = act
         self.fused = stride == 1 and not bn_between and act in ("", "relu")
         self.relu, self.relu_in = act == "relu", relu_in
 
@@ -348,9 +364,9 @@ class SeparableConvBN(nn.Module):
         the running ones in eval mode.  The JAX package's composition."""
         y = depthwise_conv_nhwc(x, self.depthwise.weight, self.stride)
         if self.bn_between:
-            y = self.act(self.bn_dw(y))
-        z = self.bn(torch.matmul(y, self.pointwise.weight.to(x.dtype)))
-        return self.act(z)
+            y = self.bn_dw(y, self.act)
+        return self.bn(torch.matmul(y, self.pointwise.weight.to(x.dtype)),
+                       self.act)
 
 
 class Dropout(nn.Module):

@@ -70,7 +70,7 @@ class SepBlock(nn.Module):
             return torch.matmul(y, pw.weight.to(y.dtype))
 
         x = sep(F.relu(x), self.sep1_dw, self.sep1_pw, self.stride)
-        x = F.relu(self.bn1(x))
+        x = self.bn1(x, "relu")
         return self.bn2(sep(x, self.sep2_dw, self.sep2_pw, 1))
 
 

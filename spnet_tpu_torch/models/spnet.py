@@ -53,7 +53,6 @@ from spnet_tpu_torch.models.layers import (
     avg_pool2_nhwc,
     conv2d_nhwc,
     init_keras_,
-    leaky_relu_01,
 )
 from spnet_tpu_torch.models.darknet import DarkNet19
 from spnet_tpu_torch.models.inception_resnet_v2 import InceptionResNetV2
@@ -101,8 +100,8 @@ class Stem(nn.Module):
     def forward(self, x):
         inputs = x
         x = avg_pool2_nhwc(conv2d_nhwc(x, self.colorizer.weight))
-        x = leaky_relu_01(self.bn1(x))
-        x = leaky_relu_01(self.bn2(conv2d_nhwc(x, self.conv2.weight)))
+        x = self.bn1(x, "leaky")
+        x = self.bn2(conv2d_nhwc(x, self.conv2.weight), "leaky")
         x = self.bn3(conv2d_nhwc(x, self.conv3.weight))
         # residual: 2x2-average-pooled input, broadcast 1ch -> filters
         return x + avg_pool2_nhwc(inputs)

@@ -26,7 +26,7 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("sepconv.cu", "loss.cu", "activations.cu")
+SOURCES = ("sepconv.cu", "loss.cu", "activations.cu", "batchnorm.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas=-v",
@@ -110,6 +110,21 @@ def load_library() -> ctypes.CDLL:
     lib.spnet_selective_sigmoid_fwd.restype = i
     lib.spnet_selective_sigmoid_bwd.argtypes = [p, p, p, ll, p]
     lib.spnet_selective_sigmoid_bwd.restype = i
+    lib.spnet_batchnorm_splits.argtypes = [ll, i, i, i]
+    lib.spnet_batchnorm_stats.argtypes = [p, p, ll, i, i, i, i, p]
+    lib.spnet_batchnorm_finalize.argtypes = [p, i, i, f, p, f, p, p, p, p,
+                                             f, f, f, p]
+    lib.spnet_batchnorm_apply.argtypes = [p, p, p, p, p, ll, i, i, i, i, i,
+                                          p]
+    lib.spnet_batchnorm_grad_sums.argtypes = [p, p, p, p, p, p, ll, i, i, i,
+                                              i, i, p]
+    lib.spnet_batchnorm_grad_finalize.argtypes = [p, i, i, p, p, p, p, p, p,
+                                                  f, p, p]
+    lib.spnet_batchnorm_grad_dx.argtypes = [p, p, p, p, p, p, p, ll, i, i, i,
+                                            i, i, p]
+    for name in ("splits", "stats", "finalize", "apply", "grad_sums",
+                 "grad_finalize", "grad_dx"):
+        getattr(lib, f"spnet_batchnorm_{name}").restype = i
     return lib
 
 

@@ -72,7 +72,7 @@ TOP_OPS = 15
 #: kernel's name (a CUDA kernel, or an aten op on the CPU) takes it
 CLASSES = (
     ("ours", r"wgmma_kernel|simple_kernel|loss_kernel|grad_scale_kernel"
-             r"|sel_sigmoid_(fwd|bwd)_kernel"),
+             r"|sel_sigmoid_(fwd|bwd)_kernel|batchnorm_\w+_kernel"),
     ("cudnn_conv", r"fprop|dgrad|wgrad|conv|cudnn|nhwcToNchw|nchwToNhwc"),
     ("gemm", r"gemm|gemv|cublas|cutlass|nvjet|splitKreduce|aten::(mm|addmm|bmm|"
              r"matmul|linear)\b"),

@@ -72,6 +72,9 @@ def test_eager_profile_on_the_cpu(tmp_path, capsys):
      "multi_tensor_apply"),
     ("void at::native::vectorized_elementwise_kernel<8, at::native::"
      "bfloat16_copy_kernel_cuda(at::TensorIteratorBase&)>()", "copy_cast"),
+    ("void (anonymous namespace)::batchnorm_grad_sums_kernel<__nv_bfloat16"
+     ", 8>(__nv_bfloat16 const*, __nv_bfloat16 const*, float const*, "
+     "float const*, float const*, float*, long long, int, int)", "ours"),
     ("Memcpy DtoD (Device -> Device)", "copy_cast"),
     ("memcpy32_post", "copy_cast"),
     ("void at::native::index_elementwise_kernel<128, 4>()", "index_gather"),
