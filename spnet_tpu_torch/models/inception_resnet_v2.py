@@ -10,7 +10,9 @@ gamma-less (Keras `scale=False`); each block's `up` 1x1 conv carries a
 zero-initialized bias, and its output is scaled (0.17 / 0.10 / 0.20) in
 the compute dtype before the residual add.  At a 331 input: 165 -> 82 ->
 80 -> 39 -> 37 -> 18 -> 8 -> 3, so 3x3x1536 into the head.  Every layer
-runs its plain composition in both modes.
+runs its plain composition in both modes.  Each residual block's forward
+runs inside an `spnet.residual` span (`utils/profiling.py::span`) and
+counts itself in `_Residual.joins`.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from spnet_tpu_torch.models.layers import (
     conv_kernel,
     max_pool_valid,
 )
+from spnet_tpu_torch.utils.profiling import span
 
 
 def _cbr(in_ch, features, kernel=1, stride=1, padding="SAME", act=True):
@@ -37,9 +40,13 @@ def _cbr(in_ch, features, kernel=1, stride=1, padding="SAME", act=True):
 class _Residual(nn.Module):
     """A residual block: branches -> concat -> `up` 1x1 conv with bias ->
     x + scale * up (-> ReLU).  Subclasses build `branches`, a list of
-    lists of module names applied in turn."""
+    lists of module names applied in turn.  `joins` counts the forwards
+    of every block on the host (40 a backbone forward, so 40 a captured
+    step; a graph's replays run none); `tools/profile_step.py` reads it
+    and the device time launched in the spans."""
 
     branches: list[list[str]]
+    joins = 0
 
     def __init__(self, channels: int, mixed: int, scale: float,
                  final_relu: bool = True):
@@ -48,16 +55,18 @@ class _Residual(nn.Module):
         self.scale, self.final_relu = scale, final_relu
 
     def forward(self, x):
-        outs = []
-        for names in self.branches:
-            y = x
-            for name in names:
-                y = getattr(self, name)(y)
-            outs.append(y)
-        up = conv2d_nhwc(torch.cat(outs, dim=-1), self.up.weight,
-                         bias=self.up.bias)
-        out = x + self.scale * up
-        return F.relu(out) if self.final_relu else out
+        with span("spnet.residual"):
+            _Residual.joins += 1
+            outs = []
+            for names in self.branches:
+                y = x
+                for name in names:
+                    y = getattr(self, name)(y)
+                outs.append(y)
+            up = conv2d_nhwc(torch.cat(outs, dim=-1), self.up.weight,
+                             bias=self.up.bias)
+            out = x + self.scale * up
+            return F.relu(out) if self.final_relu else out
 
 
 class Block35(_Residual):

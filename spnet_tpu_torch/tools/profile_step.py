@@ -1,15 +1,17 @@
 """Where the train step's device time goes, kernel by kernel.
 
     python -m spnet_tpu_torch.tools.profile_step [batch] [--form epoch|eager]
-        [--steps N] [--device cuda|cpu]
+        [--steps N] [--backbone NAME] [--device cuda|cpu]
 
 Counterpart of the JAX package's `scripts/profile_step.py` (batch 128 and
-5 traced steps by default, as there): SPNet Xception-331 with the
-ModelConfig defaults (bf16 compute, f32 parameters), a uint8 batch from
-`np.random.default_rng(0)`, the default labels `normalize(tile(grid.
-defaults))`, `onecycle_schedule(4e-5, 1000)` and `make_train_step(...,
-"same", l2_reg=1e-4, augment=True, indexed="epoch")`.  The `batch` frames
-are the resident set; `idx_mat` holds N permutations of them.
+5 traced steps by default, as there): SPNet-331 with the backbone
+`--backbone` (Xception by default; `--backbone InceptionResNetV2 32` is
+the 25-epoch sweep's step) and the ModelConfig defaults (bf16 compute,
+f32 parameters), a uint8 batch from `np.random.default_rng(0)`, the
+default labels `normalize(tile(grid.defaults))`, `onecycle_schedule(4e-5,
+1000)` and `make_train_step(..., "same", l2_reg=1e-4, augment=True,
+indexed="epoch")`.  The `batch` frames are the resident set; `idx_mat`
+holds N permutations of them.
 
   * `--form epoch` (default): `make_train_epoch`, the step `train_network`
     runs on one rank (on the card one CUDA graph of the step, replayed
@@ -29,9 +31,15 @@ synchronize.  From the trace's device events (kernels, copies, sets):
     tables are by op), and the device time of the kernels launched inside
     BatchNorm forwards (each `BatchNorm` module's forward runs inside a
     `BN_RANGE` span, `utils/profiling.py::span`, that this tool's hooks
-    open and close; the model is unchanged).  Inside a graph replay no
-    such range exists, so the epoch form reports classes only: BatchNorm
-    is spread over the reduction and elementwise classes.
+    open and close; the model is unchanged), and of those launched inside
+    the residual blocks' own `RESIDUAL_RANGE` spans (InceptionResNetV2's
+    `_Residual.forward`; 0 for a backbone without them).  Inside a graph
+    replay no such range exists, so the epoch form reports classes only:
+    BatchNorm is spread over the reduction and elementwise classes.
+
+Both forms also report the residual joins a traced step ran on the host
+(`_Residual.joins`): 40 in an eager InceptionResNetV2 step, none in a
+graph's replays.
 
 The epoch form checks that the trace sees inside the replays: the loss
 kernel must show one call a step, or the tool raises.  On the CPU (the
@@ -53,6 +61,7 @@ import torch
 
 from spnet_tpu_torch.config import GridSpec, LossWeights, ModelConfig
 from spnet_tpu_torch.grid import normalize
+from spnet_tpu_torch.models.inception_resnet_v2 import _Residual
 from spnet_tpu_torch.models.layers import BatchNorm
 from spnet_tpu_torch.models.spnet import build_model
 from spnet_tpu_torch.tools.runtime import card, tool_device
@@ -64,6 +73,7 @@ from spnet_tpu_torch.utils.profiling import span, trace
 FORMS = ("epoch", "eager")
 WINDOW = "profile_step.window"
 BN_RANGE = "spnet.profile_step.batchnorm"
+RESIDUAL_RANGE = "spnet.residual"
 LOGDIR = "logs/profile_step_torch"
 TOP_KERNELS = 25
 TOP_OPS = 15
@@ -202,7 +212,8 @@ def summarize(trace_path: str, prof, on_card: bool, steps: int,
                       for c, v in classes.items()},
         loss_kernel_calls=sum(c for n, (_, c) in kernels.items()
                               if "loss_kernel" in n),
-        aten_ops=None, bn_forward_us_per_step=None)
+        aten_ops=None, bn_forward_us_per_step=None,
+        residual_forward_us_per_step=None)
     if eager:
         rows = []
         for a in prof.key_averages():
@@ -214,16 +225,18 @@ def summarize(trace_path: str, prof, on_card: bool, steps: int,
         out["aten_ops"] = [dict(op=k, calls=c, us_per_step=us / steps,
                                 share=us / total if total else 0.0)
                            for us, k, c in rows[:TOP_OPS]]
-        out["bn_forward_us_per_step"] = _bn_us(events, on_card) / steps
+        for key, name in (("bn_forward_us_per_step", BN_RANGE),
+                          ("residual_forward_us_per_step", RESIDUAL_RANGE)):
+            out[key] = _range_us(events, on_card, name) / steps
     return out
 
 
-def _bn_us(events, on_card: bool) -> float:
-    """Device time of the kernels launched inside the BatchNorm ranges (a
+def _range_us(events, on_card: bool, name: str) -> float:
+    """Device time of the kernels launched inside the spans `name` (a
     launch's correlation id joins the host call to its kernel); on the
-    CPU, the ranges' own time."""
+    CPU, the spans' own time."""
     ranges = [e for e in events if e.get("cat") == "cpu_op"
-              and e.get("name") == BN_RANGE]
+              and e.get("name") == name]
     if not on_card:
         return float(sum(e["dur"] for e in ranges))
     kern = {}
@@ -271,12 +284,16 @@ def _print(res: dict) -> None:
                   f" us/step  {o['calls']:6d} calls  {o['op']}")
         print(f"[profile_step] BatchNorm forwards: "
               f"{res['bn_forward_us_per_step']:.1f} us a step (the "
-              "backward's BN kernels are not attributed)")
+              "backward's BN kernels are not attributed); residual block "
+              f"forwards: {res['residual_forward_us_per_step']:.1f} us a "
+              "step (their BatchNorms included)")
     else:
         print("[profile_step] the epoch form is read by class only (on "
               "the card its step is a CUDA graph, and no range reaches "
               "inside a replay): BatchNorm is spread over the reduction "
               "and elementwise classes")
+    print(f"[profile_step] residual joins on the host: "
+          f"{res['residual_joins_per_step']:g} a traced step")
 
 
 def run(batch: int = 128, form: str = "epoch", steps: int = 5, *,
@@ -317,10 +334,12 @@ def run(batch: int = 128, form: str = "epoch", steps: int = 5, *,
         step_ms = 1e3 * (time.perf_counter() - t0) / steps
         out_dir = os.path.join(logdir, f"{form}_b{batch}_{device.type}")
         shutil.rmtree(out_dir, ignore_errors=True)
+        joins = _Residual.joins
         with trace(out_dir) as prof:
             with torch.profiler.record_function(WINDOW):
                 losses = steps_run()
                 sync()
+        joins = _Residual.joins - joins
     finally:
         for h in hooks:
             h.remove()
@@ -331,6 +350,7 @@ def run(batch: int = 128, form: str = "epoch", steps: int = 5, *,
     res = dict(form=form, batch=batch, steps=steps, backbone=mc.backbone,
                input_size=mc.input_size, compute_dtype=mc.compute_dtype,
                device=str(device), card=smi, step_ms=step_ms, trace=path,
+               residual_joins_per_step=joins / steps,
                **summarize(path, prof, on_card, steps, form == "eager"))
     if form == "epoch" and on_card and res["loss_kernel_calls"] != steps:
         raise RuntimeError(
@@ -343,17 +363,19 @@ def run(batch: int = 128, form: str = "epoch", steps: int = 5, *,
 
 def main(argv=None, **kwargs) -> dict:
     """Parse argv, run, print the tables and the result line.  Keyword
-    arguments (backbone, input_size, logdir) let a CPU test run it
-    small."""
+    arguments (input_size, logdir) let a CPU test run it small."""
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("batch", type=int, nargs="?", default=128)
     p.add_argument("--form", choices=FORMS, default="epoch")
     p.add_argument("--steps", type=int, default=5)
+    p.add_argument("--backbone", default="Xception",
+                   help="the model's backbone (ModelConfig.backbone)")
     p.add_argument("--device", default=None,
                    help="torch device; default SPNET_DEVICE, else 'cuda'")
     args = p.parse_args(argv)
     res = run(args.batch, args.form, args.steps,
-              device=tool_device(args.device), **kwargs)
+              device=tool_device(args.device), backbone=args.backbone,
+              **kwargs)
     _print(res)
     print("PROFILE_STEP_RESULT " + json.dumps(res), flush=True)
     return res

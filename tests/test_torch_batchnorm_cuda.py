@@ -178,6 +178,23 @@ def test_kernels_match_twin_bf16(cuda, shape, act):
     _check_case(shape, torch.bfloat16, act, True, cuda)
 
 
+#: Inception-ResNet-v2's gamma-less layers (Keras `scale=False`) at the
+#: 25-epoch sweep's b=32 and 331 input, each with the ReLU it has there
+IRV2_SHAPES = [
+    (32, 82, 82, 32),      # stem1
+    (32, 18, 18, 32),      # a block35 branch
+    (32, 8, 8, 192),       # a block17 branch
+    (32, 3, 3, 384),       # mixed_7a
+    (32, 3, 3, 1536),      # conv_7b
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", IRV2_SHAPES)
+def test_gammaless_kernels_at_irv2_shapes_bf16(cuda, shape):
+    _check_case(shape, torch.bfloat16, "relu", False, cuda)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("act", ["", "relu", "relu6", "leaky"])
 @pytest.mark.parametrize("scale", [True, False])

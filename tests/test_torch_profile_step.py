@@ -14,7 +14,8 @@ torch.set_num_threads(2)
 KEYS = {"form", "batch", "steps", "backbone", "input_size", "compute_dtype",
         "device", "card", "step_ms", "trace", "window_ms", "busy_share",
         "device_us_per_step", "top_kernels", "classes_us", "class_shares",
-        "loss_kernel_calls", "aten_ops", "bn_forward_us_per_step"}
+        "loss_kernel_calls", "aten_ops", "bn_forward_us_per_step",
+        "residual_forward_us_per_step", "residual_joins_per_step"}
 
 
 def test_eager_profile_on_the_cpu(tmp_path, capsys):
@@ -52,6 +53,9 @@ def test_eager_profile_on_the_cpu(tmp_path, capsys):
     assert ops == sorted(ops, reverse=True) and len(ops) >= 5
     assert all(o["op"].startswith("aten::") for o in res["aten_ops"])
     assert 0 < res["bn_forward_us_per_step"] < res["window_ms"] * 1e3
+    # Xception has no residual joins, so no span of theirs
+    assert res["residual_forward_us_per_step"] == 0
+    assert res["residual_joins_per_step"] == 0
     # the classes that carry the step's arithmetic on the CPU are seen
     for cls in ("cudnn_conv", "gemm", "elementwise", "reduction"):
         assert res["classes_us"][cls] > 0, cls
@@ -100,3 +104,19 @@ def test_kernel_class(name, cls):
 def test_form_is_checked():
     with pytest.raises(ValueError, match="form"):
         profile_step.run(2, form="scan", steps=1, device="cpu")
+
+
+def test_backbone_flag(tmp_path):
+    """`--backbone` picks the model: InceptionResNetV2's eager step at
+    160^2 (its smallest input), b=2, one traced step; its 40 residual
+    joins are counted and their spans read."""
+    res = profile_step.main(["2", "--form", "eager", "--steps", "1",
+                             "--backbone", "InceptionResNetV2", "--device",
+                             "cpu"], input_size=160, logdir=str(tmp_path))
+    assert (res["backbone"], res["input_size"], res["batch"]) == (
+        "InceptionResNetV2", 160, 2)
+    assert res["classes_us"]["cudnn_conv"] > 0
+    assert 0 < res["bn_forward_us_per_step"] < res["window_ms"] * 1e3
+    assert res["residual_joins_per_step"] == 40
+    assert 0 < res["residual_forward_us_per_step"] < res["window_ms"] * 1e3
+
