@@ -303,10 +303,23 @@ check raises and the run exits non-zero:
                `F.batch_norm` with the activation (CUDA graphs of 20
                calls), the bound of 10 bytes an element, and their sums
                over the step.
+  25. adam   - the multi-tensor Adam kernel (`csrc/adam.cu`,
+               `ops/adam.py`) on Xception-331's and InceptionResNetV2-331's
+               trained leaves (seeded values): two optax and two Keras
+               updates bitwise the `_foreach` twin's (p, m, v), one launch
+               an update; device ms of one update from a CUDA graph of 20
+               for the kernel, the twin and the library's
+               `torch.optim.Adam(fused=True, capturable=True)` (a
+               yardstick the port never calls), against the bound of 28
+               bytes a leaf element.  Phase 20 holds the graphed step
+               bitwise its eager steps with the kernel in.
 
-Every model path runs with all six launch counts (K1-K4's and the
-BatchNorm kernels', and the loss kernel's count of 'ss' launches) set to 0
-just before it and checks them all just after (`_want_counts`).  The line before the last is the kernels' JSON record (for K2-K4
+Every model path runs with all seven launch counts (K1-K4's, the
+BatchNorm kernels', the Adam kernel's, and the loss kernel's count of 'ss'
+launches) set to 0 just before it and checks them all just after
+(`_want_counts`; the Adam kernel launches once an optimiser update on each
+rank: every eager step, and the warm-up steps and the captured step of
+each capture of the epoch form).  The line before the last is the kernels' JSON record (for K2-K4
 `ms` is the graph-timed device time at 128 x 576, beside `call_ms`,
 `host_us` and `floor_ms`; K2 adds `ss_fused_ms` and `ss_launches`;
 `feeds_launches`, `remat_launches`, `pretrained_launches` and
@@ -321,7 +334,10 @@ K1-K3 add `dataset_d_launches`, phase 21's runs, `refgen_launches`,
 phase 22's, and `profile_launches`, phase 23's; K2 `profile_trace_calls`,
 the loss kernel's calls in each phase-23 trace); `batchnorm_train` has
 phase 24's step sums (`library_ms`: `F.batch_norm`) and the counts of
-every train path as K2 has them;
+every train path as K2 has them; `adam_apply` phase 25's times of an
+Xception update (IRv2's beside them), `update_launches` (phase 25's
+launches an update), and the counts of every train path as K2 has them
+(`launches`: phase 6's first run);
 the last line is
 `{"ok": true, "device": {...}}`.  Exits
 non-zero without a result when no CUDA device is available.  Needs torch
@@ -512,8 +528,12 @@ def phase_build():
     for line in _build.build.log.splitlines():
         m = re.search(
             r"Compiling entry function '.*wgmma_kernelILi(\d)ELi(\d+)E", line)
+        a = re.search(r"Compiling entry function "
+                      r"'.*adam_multi_tensor_apply_kernelILb(\d)E", line)
         if m:
             name = f"wgmma_kernel<NC={m[1]}, TN={m[2]}>"
+        elif a:
+            name = f"adam_multi_tensor_apply_kernel<VEC={a[1]}>"
         elif name and ("spill" in line or "Used" in line):
             print(f"[build] ptxas {name}: {line.split(':', 1)[-1].strip()}")
             if "Used" in line:
@@ -743,12 +763,14 @@ def _wrappers() -> dict:
     from spnet_tpu_torch.ops.activations import selective_sigmoid_bwd, \
         selective_sigmoid_fwd
     from spnet_tpu_torch.ops.batchnorm import batchnorm_train
+    from spnet_tpu_torch.ops.adam import adam_apply
     from spnet_tpu_torch.ops.losses import spnet_loss_bwd, spnet_loss_fwd
     from spnet_tpu_torch.ops.sepconv import sepconv_infer
 
     return {f.__name__: f for f in (
         sepconv_infer, spnet_loss_fwd, spnet_loss_bwd,
-        selective_sigmoid_fwd, selective_sigmoid_bwd, batchnorm_train)}
+        selective_sigmoid_fwd, selective_sigmoid_bwd, batchnorm_train,
+        adam_apply)}
 
 
 SS_COUNT = "spnet_loss_fwd[ss]"  # the loss kernel's launches with K4 in it
@@ -798,14 +820,16 @@ def _bn_launches(model_cfg, steps: int, backward: bool = True,
 
 
 def _want_counts(model_cfg, predict_batches=0, train_steps=0,
-                 bn_backward=True, ranks=1) -> dict:
+                 bn_backward=True, ranks=1, updates=None) -> dict:
     """Launches of each kernel for `predict_batches` eval-mode batches and
     `train_steps` train steps of a model of `model_cfg` (on each of
     `ranks`): K1 carries Xception's 34 separable convs in eval mode only,
     K2/K3 the train loss, K4 the 'ss' head in eval mode; in a train step
     the loss kernel's 'ss' variant carries K4 (forward and backward) in
     its own pass; the BatchNorm kernels run in train mode only
-    (`_bn_launches`, with its `backward`)."""
+    (`_bn_launches`, with its `backward`); the Adam kernel once an
+    optimiser update, `updates` of them (default: one a train step;
+    every model's live leaves fit one launch)."""
     sep = SEPCONVS_PER_BATCH if model_cfg.backbone == "Xception" else 0
     ss = int(model_cfg.selective_sigmoid)
     return {"sepconv_infer": sep * predict_batches,
@@ -815,6 +839,7 @@ def _want_counts(model_cfg, predict_batches=0, train_steps=0,
             "selective_sigmoid_bwd": 0,
             "batchnorm_train": _bn_launches(model_cfg, train_steps,
                                             bn_backward, ranks),
+            "adam_apply": train_steps if updates is None else updates,
             SS_COUNT: ss * train_steps}
 
 
@@ -1348,7 +1373,8 @@ def phase_train(seed: int, smi: str) -> dict:
                         seed, "train", swap="loss")
     return dict(fwd_launches=counts["spnet_loss_fwd"],
                 bwd_launches=counts["spnet_loss_bwd"],
-                bn_launches=counts["batchnorm_train"], img_per_sec=img_s)
+                bn_launches=counts["batchnorm_train"],
+                adam_launches=counts["adam_apply"], img_per_sec=img_s)
 
 
 def phase_k4(seed: int, smi: str) -> dict:
@@ -1442,7 +1468,7 @@ def phase_heads(seed: int, smi: str) -> dict:
                 counts = _f32_step_agreement(f32, x16, y16, seed, tag,
                                              swap="model")
                 if counts != _want_counts(f32, train_steps=1,
-                                          bn_backward=False):
+                                          bn_backward=False, updates=0):
                     fail(f"{tag}: f32 step launches {counts}")
             # fused=False: K4's own forward and backward on the model
             counts = _f32_step_agreement(f32, x16, y16, seed, tag,
@@ -1538,7 +1564,7 @@ def phase_zoo(seed: int, smi: str) -> dict:
             dataclasses.replace(cfg.model, compute_dtype="float32"), x16,
             y16, seed, tag, swap="loss")
         if step_counts != _want_counts(cfg.model, train_steps=1,
-                                       bn_backward=False):
+                                       bn_backward=False, updates=0):
             fail(f"{tag}: f32 step launches {step_counts}")
         del x16, y16
         torch.cuda.empty_cache()
@@ -3611,7 +3637,8 @@ def _epoch_pair(mc, b: int, data, seed: int, tag: str, smi: str) -> dict:
           f"Adam moment and count {not bad} {bad[:5]}; captures "
           f"{[round(c, 3) for c in g['captures']]} s; launches graphed "
           f"{g['counts']} (warm-ups + the graph's contents), eager "
-          f"{e['counts']}; peak allocated above the memory in use before "
+          f"{e['counts']}; peak "
+          f"allocated above the memory in use before "
           f"the run, graphed {g['peak_gib']:.4f} / "
           f"eager {e['peak_gib']:.4f} GiB; reserved and free after "
           f"empty_cache, more than before the run (the graph's pool) "
@@ -4353,6 +4380,123 @@ def phase_batchnorm(seed: int, smi: str) -> dict:
     return res
 
 
+ADAM_BACKBONES = ("Xception", "InceptionResNetV2")  # the train cells'
+ADAM_CALLS = 20  # updates in phase 25's timing graphs
+ADAM_LEAF_BYTES = 28  # p, g, m, v read; p, m, v written; float32
+
+
+@torch.no_grad()
+def _adam_twin(variant: str, params, grads, state, lr):
+    """`optim.ADAM_APPLIES[variant]` with the `_foreach` passes
+    (`optim.foreach_update`) where it calls the kernel."""
+    import dataclasses
+
+    from spnet_tpu_torch.train import optim
+
+    ps, gs, mus, nus = optim._live(params, grads, state)
+    bc1, bc2 = optim._advance(state, optim.B1, optim.B2)
+    if variant == "keras":
+        lr = lr * torch.sqrt(bc2) / bc1
+    if ps:
+        optim.foreach_update(ps, gs, mus, nus, lr, bc1, bc2, optim.B1,
+                             optim.B2, optim.EPS, variant == "optax")
+    return dataclasses.replace(state, count=state.count + 1)
+
+
+def _adam_case(backbone: str, seed: int) -> dict:
+    """Phase 25 on SPNet-`backbone`'s trained leaves (shapes from the
+    model at 331, values seeded): two optax and two Keras updates of the
+    kernel and of the `_foreach` twin from the same leaves, p, m and v
+    compared bitwise, and the kernel's launches; then device ms of one
+    optax update from a graph of ADAM_CALLS for the kernel, the twin and
+    the library's fused Adam, and the bound."""
+    from spnet_tpu_torch.config import GridSpec, ModelConfig
+    from spnet_tpu_torch.models.spnet import build_model
+    from spnet_tpu_torch.ops.adam import adam_apply
+    from spnet_tpu_torch.train import optim
+
+    shapes = [p.shape for p in build_model(
+        ModelConfig(backbone=backbone), num_outputs=GridSpec().num_outputs,
+        device="meta").parameters()]
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    p0 = [torch.randn(s, generator=g, device=DEVICE) * 0.05 for s in shapes]
+    grads = [[torch.randn(s, generator=g, device=DEVICE) * 1e-3
+              for s in shapes] for _ in range(2)]
+    n = sum(p.numel() for p in p0)
+
+    def updates(variant: str, twin: bool):
+        """[params, first, second moments] after the updates; `twin`: the
+        `_foreach` passes where the optimizer calls the kernel."""
+        ps = [p.clone() for p in p0]
+        state = optim.adam_init(ps)
+        apply = (functools.partial(_adam_twin, variant) if twin
+                 else optim.ADAM_APPLIES[variant])
+        for gs in grads:
+            state = apply(ps, gs, state, optim.lr_tensor(1e-4, state))
+        return [ps, state.mu, state.nu]
+
+    bitwise, launches = {}, {}
+    for variant in optim.ADAM_APPLIES:
+        n0 = adam_apply.launches
+        kernel = updates(variant, False)
+        launches[variant] = (adam_apply.launches - n0) // len(grads)
+        twin = updates(variant, True)
+        bitwise[variant] = all(torch.equal(a, b) for k, t in
+                               zip(kernel, twin) for a, b in zip(k, t))
+        del kernel, twin
+    # timings: one optax update of every leaf, bias corrections fixed
+    ps = [p.clone() for p in p0]
+    mus = [torch.zeros_like(p) for p in ps]
+    nus = [torch.zeros_like(p) for p in ps]
+    lr, bc1, bc2 = (torch.tensor(v, device=DEVICE)
+                    for v in (1e-4, 0.1, 1e-3))
+    args = (lr, bc1, bc2, optim.B1, optim.B2, optim.EPS, True)
+    kernel_ms = graph_ms(lambda: adam_apply(ps, grads[0], mus, nus, *args),
+                         calls=ADAM_CALLS, replays=5)
+    plain_ms = graph_ms(lambda: optim.foreach_update(ps, grads[0], mus, nus,
+                                                     *args),
+                        calls=ADAM_CALLS, replays=5)
+    del ps, mus, nus
+    torch.cuda.empty_cache()
+    lib_ps = [p.clone() for p in p0]
+    for p, gr in zip(lib_ps, grads[0]):
+        p.grad = gr
+    lib = torch.optim.Adam(lib_ps, lr=lr, eps=optim.EPS, fused=True,
+                           capturable=True)
+    library_ms = graph_ms(lib.step, calls=ADAM_CALLS, replays=5)
+    del lib, lib_ps
+    torch.cuda.empty_cache()
+    bound_ms = 1e3 * ADAM_LEAF_BYTES * n / HBM_BYTES_PER_S
+    return dict(leaves=len(shapes), elements=n, bitwise=bitwise,
+                launches=launches, ms=kernel_ms, plain_ms=plain_ms,
+                library_ms=library_ms, bound_ms=bound_ms,
+                pct=100 * bound_ms / kernel_ms)
+
+
+def phase_adam(seed: int, smi: str) -> dict:
+    """Phase 25: the multi-tensor Adam kernel (`ops/adam.py`) on the train
+    cells' models' trained leaves (`_adam_case`): bitwise the `_foreach`
+    twin, one launch an update, and its device time against the twin's,
+    the library's fused Adam's and the bound of 28 bytes an element."""
+    t0 = time.perf_counter()
+    res = {}
+    for backbone in ADAM_BACKBONES:
+        r = _adam_case(backbone, seed)
+        print(f"[adam] {backbone}-331, {r['leaves']} leaves, "
+              f"{r['elements']:,} elements: an update {r['ms']:.4f} ms "
+              f"(bound {r['bound_ms']:.4f}: {r['pct']:.1f} %; the _foreach "
+              f"twin {r['plain_ms']:.4f}, library fused Adam "
+              f"{r['library_ms']:.4f}); bitwise the twin {r['bitwise']}; "
+              f"launches an update {r['launches']}  [{smi}]")
+        if not all(r["bitwise"].values()) or \
+                set(r["launches"].values()) != {1}:
+            fail(f"adam {backbone}: {r}")
+        res[backbone] = r
+    res["seconds"] = time.perf_counter() - t0
+    print(f"[adam] phase 25 took {res['seconds']:.1f} s")
+    return res
+
+
 def _late_launches(name: str, feeds: dict, remat: dict, pre: dict) -> dict:
     """A train kernel's launches on the paths of phases 11, 12 and 14."""
     return dict(feeds_launches={f: feeds[f]["counts"][name] for f in FEEDS},
@@ -4408,6 +4552,7 @@ def main(argv=None):
     refgen = phase_refgen(args.seed, smi)
     profile = phase_profile(args.seed, smi)
     bnk = phase_batchnorm(args.seed, smi)
+    adam = phase_adam(args.seed, smi)
     print(f"[done] {time.perf_counter() - t0:.1f} s after the device phase; "
           f"train {train['img_per_sec']:.1f} images/s at b={TRAIN_BATCH}; "
           f"zoo train images/s "
@@ -4621,6 +4766,32 @@ def main(argv=None):
          "refgen_launches": refgen_launches("batchnorm_train"),
          "profile_launches": profile_launches("batchnorm_train"),
          **_late_launches("batchnorm_train", feeds, remat, pre)},
+        # phase 25: one optax update of Xception-331's trained leaves from a
+        # graph (IRv2's beside it), and its launches an update; launches:
+        # phase 6's first run, and each other path's as for K2
+        {"name": "adam_apply", "route": "cuda",
+         "source": "spnet_tpu_torch/csrc/adam.cu", "replaces": None,
+         "launches": train["adam_launches"],
+         "ms": adam["Xception"]["ms"],
+         "plain_ms": adam["Xception"]["plain_ms"],
+         "bound_ms": adam["Xception"]["bound_ms"], "bound_by": "bytes",
+         "library_ms": adam["Xception"]["library_ms"],
+         "irv2": {k: adam["InceptionResNetV2"][k] for k in
+                  ("ms", "plain_ms", "bound_ms", "library_ms")},
+         "update_launches": {b: r["launches"] for b, r in adam.items()
+                             if b != "seconds"},
+         "zoo_launches": {b: r["train_counts"]["adam_apply"]
+                          for b, r in zoo.items()},
+         "geo_launches": syn["train_counts"]["adam_apply"],
+         "dp_launches": dp_launches("adam_apply"),
+         "bench_launches": bench_launches("adam_apply"),
+         "native_launches": native_launches("adam_apply"),
+         "validation_launches": validation_launches("adam_apply"),
+         "epoch_launches": epoch_launches("adam_apply"),
+         "dataset_d_launches": dataset_d_launches("adam_apply"),
+         "refgen_launches": refgen_launches("adam_apply"),
+         "profile_launches": profile_launches("adam_apply"),
+         **_late_launches("adam_apply", feeds, remat, pre)},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -26,7 +26,8 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("sepconv.cu", "loss.cu", "activations.cu", "batchnorm.cu")
+SOURCES = ("sepconv.cu", "loss.cu", "activations.cu", "batchnorm.cu",
+           "adam.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas=-v",
@@ -125,6 +126,11 @@ def load_library() -> ctypes.CDLL:
     for name in ("splits", "stats", "finalize", "apply", "grad_sums",
                  "grad_finalize", "grad_dx"):
         getattr(lib, f"spnet_batchnorm_{name}").restype = i
+    lib.spnet_adam_max_leaves.argtypes = []
+    lib.spnet_adam_max_leaves.restype = i
+    lib.spnet_adam_apply.argtypes = [p, p, p, p, p, i, p, p, p, f, f, f, f,
+                                     f, i, i, p]
+    lib.spnet_adam_apply.restype = i
     return lib
 
 

@@ -15,9 +15,12 @@ Both keep `count` in the optimizer state, as optax and `keras_adam` do,
 so a fresh state (`unfreeze`) restarts the schedule the update applies at
 schedule(0) while the train state's step carries on.  The updates are
 plain functions over lists of float32 tensors, applied in place under
-`no_grad` with PyTorch's multi-tensor (`_foreach`) ops.  A parameter whose
-moments are None is frozen: its update is zero, as under optax's
-`multi_transform` + `set_to_zero`.
+`no_grad`: on CUDA tensors by one kernel over every leaf
+(`ops/adam.py::adam_apply`), on the CPU by PyTorch's multi-tensor
+(`_foreach`) passes, `foreach_update`, which are also the kernel's plain
+twin (the kernel gives their bits).  A parameter whose moments are None is
+frozen: its update is zero, as under optax's `multi_transform` +
+`set_to_zero`.
 
 The arithmetic reads no host number that changes from step to step, so a
 CUDA graph of the step replays it (`train/steps.py::make_train_epoch`):
@@ -35,6 +38,8 @@ import dataclasses
 from typing import Callable
 
 import torch
+
+from spnet_tpu_torch.ops.adam import adam_apply
 
 B1, B2, EPS = 0.9, 0.999, 1e-7  # eps: Keras's K.epsilon(), as in JAX
 
@@ -86,6 +91,37 @@ def _advance(state: AdamState, b1: float, b2: float):
     return 1.0 - torch.pow(b1, state.t), 1.0 - torch.pow(b2, state.t)
 
 
+def foreach_update(ps, gs, mus, nus, lr, bc1, bc2, b1: float, b2: float,
+                   eps: float, optax: bool) -> None:
+    """The update of the live leaves in `_foreach` passes, in place: the
+    CPU's path and the plain twin of `ops/adam.py::adam_apply`, with its
+    arguments.  optax: lr is the learning rate, the moments bias-corrected
+    by bc1, bc2; Keras: lr is lr_t, bc1 and bc2 are not read."""
+    _moments(gs, mus, nus, b1, b2)
+    if optax:
+        denom = torch._foreach_div(nus, bc2)
+        torch._foreach_sqrt_(denom)
+        torch._foreach_add_(denom, eps)
+        upd = torch._foreach_div(mus, bc1)
+        torch._foreach_div_(upd, denom)
+    else:
+        denom = torch._foreach_sqrt(nus)
+        torch._foreach_add_(denom, eps)
+        upd = torch._foreach_div(mus, denom)
+    torch._foreach_mul_(upd, lr)
+    torch._foreach_sub_(ps, upd)
+
+
+def _update(ps, gs, mus, nus, *args) -> None:
+    """The kernel for CUDA tensors, the `_foreach` passes otherwise."""
+    if not ps:
+        return
+    if ps[0].device.type == "cuda":
+        adam_apply(ps, gs, mus, nus, *args)
+    else:
+        foreach_update(ps, gs, mus, nus, *args)
+
+
 @torch.no_grad()
 def optax_adam_apply(params, grads, state: AdamState, lr: torch.Tensor,
                      b1: float = B1, b2: float = B2,
@@ -94,15 +130,7 @@ def optax_adam_apply(params, grads, state: AdamState, lr: torch.Tensor,
     device), in place on `params`."""
     ps, gs, mus, nus = _live(params, grads, state)
     bc1, bc2 = _advance(state, b1, b2)
-    if ps:
-        _moments(gs, mus, nus, b1, b2)
-        denom = torch._foreach_div(nus, bc2)
-        torch._foreach_sqrt_(denom)
-        torch._foreach_add_(denom, eps)
-        upd = torch._foreach_div(mus, bc1)
-        torch._foreach_div_(upd, denom)
-        torch._foreach_mul_(upd, lr)
-        torch._foreach_sub_(ps, upd)
+    _update(ps, gs, mus, nus, lr, bc1, bc2, b1, b2, eps, True)
     return dataclasses.replace(state, count=state.count + 1)
 
 
@@ -116,13 +144,7 @@ def keras_adam_apply(params, grads, state: AdamState, lr: torch.Tensor,
     ps, gs, mus, nus = _live(params, grads, state)
     bc1, bc2 = _advance(state, b1, b2)
     lr_t = lr * torch.sqrt(bc2) / bc1
-    if ps:
-        _moments(gs, mus, nus, b1, b2)
-        denom = torch._foreach_sqrt(nus)
-        torch._foreach_add_(denom, eps)
-        upd = torch._foreach_div(mus, denom)
-        torch._foreach_mul_(upd, lr_t)
-        torch._foreach_sub_(ps, upd)
+    _update(ps, gs, mus, nus, lr_t, bc1, bc2, b1, b2, eps, False)
     return dataclasses.replace(state, count=state.count + 1)
 
 

@@ -3,9 +3,14 @@
 package: both Adam variants update by update against `optax.adam(eps=
 1e-7)` and `keras_adam` through a frozen phase and `unfreeze`, the restart
 of the schedule the update applies after `unfreeze`, the backbone freeze
-labels of the full SPNet, and the 1-cycle schedule."""
+labels of the full SPNet, and the 1-cycle schedule.  On CPU tensors the
+updates take the `_foreach` twin, never the card's kernel
+(`ops/adam.py`), whose name the benchmark's trace classes as a
+multi-tensor apply."""
 
 import dataclasses
+import re
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -24,7 +29,12 @@ from spnet_tpu.train.state import make_optimizer as j_make_optimizer
 from spnet_tpu_torch.config import ModelConfig
 from spnet_tpu_torch.convert import flax_tree_to_torch
 from spnet_tpu_torch.models.spnet import build_model
-from spnet_tpu_torch.train.optim import adam_init, optax_adam_update
+from perfbench.trace import kernel_class
+from spnet_tpu_torch.ops import adam as adam_ops
+from spnet_tpu_torch.ops._build import CSRC
+from spnet_tpu_torch.train import optim
+from spnet_tpu_torch.train.optim import ADAM_APPLIES, adam_init, \
+    lr_tensor, optax_adam_update
 from spnet_tpu_torch.train.schedule import onecycle_schedule
 from spnet_tpu_torch.train.state import (
     backbone_freeze_labels,
@@ -195,3 +205,105 @@ def test_onecycle_matches_jax_and_reference_lut():
     np.testing.assert_allclose(got, ref, rtol=0, atol=1e-6 * 4e-5)
     np.testing.assert_allclose(got[:len(lut)], lut, rtol=2e-3)
     assert sched(len(lut) + 100) == pytest.approx(4e-5 / 25 / 1e4)
+
+
+@pytest.mark.parametrize("variant", ["optax", "keras"])
+def test_cpu_tensors_take_the_foreach_twin(variant, monkeypatch):
+    """Two updates on CPU tensors, a frozen leaf among them: the wrapper is
+    never called (`adam_apply.launches` stays 0) and the result is the
+    twin's, applied by hand to the live leaves, bit for bit."""
+    def refuse(*a, **k):
+        raise AssertionError("the kernel's wrapper ran on CPU tensors")
+
+    gen = torch.Generator().manual_seed(5)
+    shapes = [(3, 4), (7,), (1,), (2, 5, 3)]
+    p0 = [torch.randn(s, generator=gen) for s in shapes]
+    grads = [[torch.randn(s, generator=gen) * 1e-3 for s in shapes]
+             for _ in range(2)]
+    trainable = [True, False, True, True]
+    n0 = adam_ops.adam_apply.launches
+    monkeypatch.setattr(optim, "adam_apply", refuse)
+    ps = [p.clone() for p in p0]
+    state = adam_init(ps, trainable)
+    for gs in grads:
+        state = ADAM_APPLIES[variant](ps, gs, state, lr_tensor(1e-2, state))
+    assert adam_ops.adam_apply.launches == n0 == 0
+    live = [i for i, t in enumerate(trainable) if t]
+    want = [p.clone() for p in p0]
+    mus = [torch.zeros_like(want[i]) for i in live]
+    nus = [torch.zeros_like(want[i]) for i in live]
+    t = torch.zeros(())
+    for gs in grads:
+        t += 1
+        bc1, bc2 = 1.0 - torch.pow(0.9, t), 1.0 - torch.pow(0.999, t)
+        lr = lr_tensor(1e-2, state)
+        if variant == "keras":
+            lr = lr * torch.sqrt(bc2) / bc1
+        optim.foreach_update([want[i] for i in live], [gs[i] for i in live],
+                             mus, nus, lr, bc1, bc2, 0.9, 0.999, 1e-7,
+                             variant == "optax")
+    for a, b in zip(ps, want):
+        assert torch.equal(a, b)
+    assert torch.equal(ps[1], p0[1])
+    for k, i in enumerate(live):
+        assert torch.equal(state.mu[i], mus[k])
+        assert torch.equal(state.nu[i], nus[k])
+
+
+def test_kernel_wrapper_refuses_cpu_tensors():
+    """On the CPU the wrapper raises before it loads any library; the
+    twin (`optim.foreach_update`) is the CPU's path."""
+    one = torch.ones(())
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        adam_ops.adam_apply([torch.zeros(3)], [torch.zeros(3)],
+                            [torch.zeros(3)], [torch.zeros(3)], one, one,
+                            one, 0.9, 0.999, 1e-7, True)
+    assert adam_ops.adam_apply.launches == 0
+
+
+def _adam_kernel_names() -> list:
+    """The kernel's full names as the profiler shows them, read from the
+    entry point in `csrc/adam.cu`: a kernel of the anonymous namespace,
+    templated on one bool and taking its argument struct by value."""
+    src = (CSRC / "adam.cu").read_text()
+    m = re.search(r"namespace \{.*?template <bool \w+>\s*__global__ void"
+                  r"(?:\s+__launch_bounds__\([^)]*\))?\s+(\w+)\("
+                  r"const (\w+) \w+\).*?\}  // namespace", src, re.S)
+    assert m, "no templated __global__ entry point in an anonymous namespace"
+    kernel, table = m.groups()
+    ns = "(anonymous namespace)::"
+    return [f"void {ns}{kernel}<{b}>({ns}{table})"
+            for b in ("true", "false")]
+
+
+def test_kernel_name_is_classed_as_a_multi_tensor_apply():
+    """`adam_roofline.train` reads the device time of the kernels that
+    `perfbench/trace.py` classes as `multi_tensor_apply`: the kernel's
+    name must land there and in no earlier class."""
+    names = _adam_kernel_names()
+    assert "adam_multi_tensor_apply_kernel" in names[0]
+    for name in names:
+        assert kernel_class(name) == "multi_tensor_apply", name
+
+
+def test_launch_groups_respect_the_table_size(monkeypatch):
+    """Leaves split into launches of at most the kernel's table size, in
+    order, none empty."""
+    monkeypatch.setattr(adam_ops, "_max_leaves", lambda: 3)
+    assert adam_ops._launches(0) == []
+    assert adam_ops._launches(3) == [(0, 3)]
+    assert adam_ops._launches(7) == [(0, 3), (3, 6), (6, 7)]
+
+
+def test_leaf_layout_ignores_dimensions_of_one_element():
+    """A 1x1 conv weight and its gradient as autograd lays it out (other
+    strides on the unit dimensions) share a layout; a permuted dense
+    tensor has its own; a strided view has none."""
+    w = torch.empty(256, 128, 1, 1)
+    g = torch.empty_strided((256, 128, 1, 1), (128, 1, 128, 128))
+    assert adam_ops._layout(w) == adam_ops._layout(g) == (128, 1)
+    perm = torch.empty(6, 5, 4, 3).permute(0, 2, 3, 1)
+    assert adam_ops._layout(perm) == (60, 3, 1, 12)
+    assert adam_ops._layout(perm) != adam_ops._layout(perm.contiguous())
+    assert adam_ops._layout(torch.empty(4, 6)[:, :3]) is None
+    assert adam_ops._layout(torch.empty(4, 6)[:, ::2]) is None
