@@ -2,344 +2,152 @@
 
     python3 chip_smoke.py [--seed N]
 
-Run from the repository root.  Phases, one or more lines each; any failed
-check raises and the run exits non-zero:
+Run from the repository root.  It holds every hand-written kernel to its
+plain PyTorch twin on the card, times the kernels for PERF.md's table of
+kernels, and drives each path of the port at full width with its kernel
+launches counted.  The benchmark (`perfbench/`) measures the paths' speed;
+this run prints no path's rate, memory or stage times.  Phases, one or
+more lines each; any failed check raises and the run exits non-zero:
 
   1. device  - the card's name and power limit (nvidia-smi), torch and CUDA
                versions; TF32 is switched off for the float32 checks;
   2. build   - compiles the CUDA kernels from `spnet_tpu_torch/csrc`;
-  3. kernel  - the fused separable-conv kernel against its plain PyTorch
+  3. kernel  - the fused separable-conv kernel K1 against its plain
                version at the 10 Xception-331 shapes (b=16 with the input
                and output ReLU as the model has them and flipped; b=64,
                `bench_infer`'s batch, and b=256, the train path's val-sweep
                batch, as the model has them; b=512, `movie_predict`'s
-               batch, five timings each) and two ragged shapes, in float32
-               and bfloat16, with the median
-               time of each (CUDA events); for bf16 at b=16 and b=256 each
-               shape's bound (bytes and operations from the shapes, which
-               one binds), % of bound, and the time of the unfused library
-               pair (cuDNN depthwise conv + torch.matmul, two calls, no
-               BN/ReLU epilogue: a yardstick the port never calls); and
-               the b=16 batch of 34 replayed from a CUDA graph;
-  4. slice   - the serving path at full width: SPNet Xception-331 (bf16,
-               seeded Keras init, seeded BN running stats) saved as a port
-               checkpoint, reloaded through the CLI's loader, 64 seeded
-               uint8 frames through `predict_in_batches` at b=16, then
-               denormalize, calc_errors, calc_map and the prediction CSV.
-               Checks the kernel's launch count on that run, finite outputs,
-               and agreement of the whole model, float32 and bfloat16, between
-               the kernels and their plain versions;
+               batch) and two ragged shapes, float32 and bfloat16, with the
+               median time of each (CUDA events); for bf16 at b=16 and
+               b=256 each shape's bound (bytes and operations from the
+               shapes, which one binds), % of bound, and the time of the
+               unfused library pair (cuDNN depthwise conv + torch.matmul, a
+               yardstick the port never calls); the b=16 batch of 34
+               replayed from a CUDA graph; a descriptor-ring check;
+  4. slice   - the serving path: SPNet Xception-331 (bf16, seeded Keras
+               init and BN running stats) saved as a port checkpoint,
+               reloaded through the CLI's loader, 64 seeded frames through
+               `predict_in_batches` at b=16, then denormalize, calc_errors,
+               calc_map and the prediction CSV; the whole model, float32
+               and bfloat16, with the kernels against their plain versions;
   5. loss    - the loss kernel (K2 and K3 in one pass) and the backward's
-               scale kernel against the plain PyTorch twin at B = 16, 32, 128,
-               256 x M = 576 and two ragged shapes, 'same' and 'hybrid',
-               float32: loss rel 1e-5 (`spnet_loss_fwd` and the fused
-               forward), gradient max-abs error <= 1e-5 max|grad|
-               (`spnet_loss_bwd`, and the fused forward's gradient x g
-               through the backward), the latter within rel 1e-6 of the
-               former; three forward calls, three replays of a CUDA graph of
-               one call and an eager call after them bitwise equal.  At
-               every shape ('same') the device time per call of the loss,
-               the standalone gradient, the fused forward with its gradient,
-               the scale kernel and the plain versions, from CUDA graphs of
-               100 calls (`graph_ms`); the event time of one call; the host
-               time per eager call; and the launch floor (a one-element
-               `add_` timed as the kernels are).  Then the loss kernel's
-               'ss' variant (the selective sigmoid K4 in the same pass, on
-               the pre-activation z = 4 randn) at the same 6 shapes x 2
-               loss types: the loss bitwise equal to K4's forward then the
-               loss kernel, and rel 1e-5 of the twins' composition; the
-               gradient with respect to z within rel 1e-6 of max|grad| of
-               K4's backward of the loss kernel's gradient x g, for g = 1
-               (bitwise or not, printed) and 0.75, and 1e-5 of the twins';
-               3 calls, 3 graph replays and a call after them bitwise
-               equal; at every shape ('same') its times as above, and the
-               'ss' step's loss from one graph, the fused route (2
-               launches) beside the composition (K4, the loss kernel, the
-               scale, K4's backward: 4 launches);
-  6. train   - the training path at full width through `train_network`:
-               SPNet Xception-331 bf16, b=128, 512 seeded uint8 train frames
-               and 256 val frames resident on the card, augmentation on,
-               2 epochs with a checkpoint each, then the same run asked for 3
-               epochs, which must resume at epoch 3 from the saved step and
-               optimizer count.  Checks K2 and K3 launches (on the epoch
-               form, the CUDA graph of phase 20: its eager warm-up steps
-               and the captured step; elsewhere every step), K1
-               launches = 34 per val batch (warm-up included), finite losses,
-               moved BN statistics, losses.dat and the checkpoint; prints the
-               train images/s.  Then 30 steps on one b=16 batch (no
-               augmentation, no dropout, lr 1e-4) must lower the loss, and
-               one float32 train step with the kernel loss must agree with
-               the same step on the plain twin (loss rel 1e-6, head-weight
-               gradient rel 1e-5);
-  7. heads   - the selective-sigmoid kernel K4 (forward and backward)
-               against its plain twins at B = 16, 32, 128, 256 x M = 576 and two
-               ragged shapes (rel 1e-6; graph, event and host times as in
-               phase 5); the 'ss' head
-               (Xception-331 bf16 + K4) served from a port checkpoint whose
-               `experiment.json` selects it: 64 frames at b=16, K4 launches
-               = batches + warm-up, K1 34 per batch, noobj lanes in (0, 1),
-               and the f32 model with the kernels against the plain versions
-               (rel 1e-4); the 'ss' head trained through `train_network`
-               (b=128, 2 epochs of 4 steps; the loss kernel's 'ss' variant
-               and the scale launch in each eager or captured step, K4
-               only in the val
-               sweeps) and one f32 train step on the fused route against
-               the plain model with the kernel loss, under 'same' and
-               'hybrid' (loss rel 1e-6, head-weight gradient rel 1e-5), and
-               one with fused=False, which drives K4's forward and backward
-               on the model (launch counts checked), against the twins;
-               then the
-               compound head (Xception-331) and MobileNet-331, bf16, each
-               served (b=16) and trained (b=128, 2 epochs) the same way,
-               with their frames/s and train images/s;
-  8. zoo     - DarkNet19, InceptionResNetV2 and NASNetMobile at 331, bf16
-               compute with f32 params, each served (port checkpoint, the
-               CLI's loader, 64 frames at b=16) and trained (b=128, 2
-               epochs of 4 steps, then resumed to 3), with every launch
-               count checked (no K1 or K4; K2 = K3 as in phase 6); one f32
-               step with the kernel loss against the plain twin; the f32
-               eval output on the card against the same model on the CPU
-               on 2 frames (TF32 off, rel ZOO_CPU_RTOL); predict frames/s,
-               train images/s and the peak of `max_memory_allocated` of
-               each path;
-  9. tta     - the flip ensemble (direct + h, v, hv) on Xception-331 from a
-               port checkpoint: `predict_tta` over 64 frames at b=16 (K1 34
-               per batch per view, warm-ups included, finite merged
-               predictions), then `evaluate_network(..., tta="h,v,hv")` on
-               the same frames (its own sweep batch, 64) with its launch
-               count and metrics; the ensemble frames/s of both.
-  10. synth  - the synthetic feed and geometric training: one render batch
-               of 256 frames timed stage by stage, twice (scene sampling,
-               the noise-free render, the noise stage with its 256
-               generators, the resize, the uint8 copy, and PIL's PNG of 32
-               native frames); `synthetic_dataset` on the card
-               (512 train + 256 val frames at 331^2, frames/s); the
-               noise-free render (share of flipped pixels <= 1e-3) and the
-               resize (rel 2e-5) on the card against the CPU; the geo warp
-               of 32 frames against the CPU (image 2e-4, rows 1e-4) and the
-               encoder on the card against the host codec (slot lanes
-               bitwise, angle lanes 2e-6, bitwise or not printed);
-               `train_network` with geo_augment, epoch_repeats 2 and use_tb
-               (Xception-331 bf16, b=128, 2 epochs, then resumed to 3: K2 =
-               K3 = 16 a 2-epoch run, K1 34 per val batch, the 7 TensorBoard
-               scalars each epoch); 10 + 10 train steps with and without
-               geo in turns and 3 geo steps under `utils.profiling.trace`
-               (the geo stages' share of the device time from the trace);
-               then `gen-fake-espi -n 96 --all` and `train --geo_augment
-               --epoch_repeats 2 --use_tb --profile` (1 epoch, b=16)
-               through the CLI's `main`, with its
-               launch counts, its trace's kernel names (the repo's kernels
-               among them) and the geo stages' share.
-  11. feeds  - `train_network` with device_data True (resident), False
-               (host-fed: each batch sliced on the host and copied one
-               ahead through pinned memory on a side stream) and "chunked"
-               (a chunk budget that `plan_chunks` turns into 4 chunks of
-               512): Xception-331 bf16, b=128, 2048 seeded frames + 256
-               val, augmentation on, 2 epochs a run, two runs of each in
-               turns (resident, host-fed, chunked, then reversed), with
-               their images/s and launch counts (K2 = K3 = steps; the
-               resident feed's as in phase 6, K1 34
-               per val batch);
-               every host-fed batch and every chunk on the card equal to
-               its host rows, and the chunked visit order equal to the
-               same streamer's on the CPU; 2 steps with augmentation off,
-               host-fed losses bitwise the resident ones (cuDNN
-               deterministic); 5 steps of each feed under torch.profiler,
-               in turns, and the device's idle share from the traces;
-  12. remat  - Xception-331 bf16 train steps at b=128 with the backbone
-               checkpointed and not, in turns: step time and the peak of
-               `max_memory_allocated`; one float32 b=16 step both ways:
-               loss and gradients (rel 1e-5) and BN running statistics
-               (rel 1e-6), bitwise or not printed;
-  13. export - Xception-331 bf16 port checkpoints (default and 'ss'
-               head) exported on the card (`io/export.py`, symbolic
-               batch) and loaded; 256 seeded frames at b=16 through
-               `predict_in_batches`, eager and artifact in turns, and a
-               b=7 batch: bitwise equal, K1 34 per batch and K4 1 per
-               batch through the artifact's operators; export and load
-               seconds, frames/s and host ms per batch of each;
-  14. pretrained - if keras and h5py import (Keras on its torch backend,
-               its optional jax import refused): a random-weight Keras
+               scale kernel against the twin at B = 16, 32, 128, 256 x
+               M = 576 and two ragged shapes, 'same' and 'hybrid', float32
+               (loss rel 1e-5, gradient 1e-5 of max|grad|, the fused
+               forward's gradient within 1e-6 of the standalone one); calls,
+               CUDA-graph replays and a call after them bitwise equal; at
+               every shape ('same') the device time per call from CUDA
+               graphs of 100 calls (`graph_ms`), the event time of one call,
+               the host time per eager call and the launch floor.  Then the
+               'ss' variant (K4 in the loss's pass) at the same shapes:
+               bitwise K4 then the loss kernel, within the twins'
+               tolerances, with its times and the 'ss' step's from a graph;
+  6. train   - `train_network` on SPNet Xception-331 bf16, b=128, 512 + 256
+               resident seeded frames, 2 epochs, then resumed to 3: launch
+               counts, finite losses, moved BN statistics, losses.dat and
+               the checkpoint; 30 steps on one b=16 batch lower the loss;
+               one float32 step, kernel loss against the twin;
+  7. heads   - K4 forward and backward against the twins at the loss
+               shapes, with their times as in phase 5; the 'ss' head served
+               from a checkpoint whose `experiment.json` selects it and
+               trained through `train_network`, float32 steps on the fused
+               route and with fused=False against the plain model; the
+               compound head and MobileNet-331 served and trained;
+  8. zoo     - DarkNet19, InceptionResNetV2 and NASNetMobile at 331: served,
+               trained and resumed, launch counts; one f32 step, kernel
+               loss against the twin; f32 eval on the card against the CPU;
+  9. tta     - `predict_tta` (direct + h, v, hv) and `evaluate_network(...,
+               tta="h,v,hv")` on Xception-331: launches, finite results;
+  10. synth  - `synthetic_dataset` on the card; the noise-free render, the
+               resize, the geo warp and the encoder on the card against the
+               CPU; `train_network` with geo_augment, epoch_repeats 2 and
+               use_tb (2 epochs, resumed to 3; 7 TensorBoard scalars an
+               epoch); `gen-fake-espi --all` and `train --geo_augment
+               --epoch_repeats 2 --use_tb --profile` through the CLI's
+               `main`: launches, one trace that holds kernels;
+  11. feeds  - `train_network` resident, host-fed and chunked (4 chunks of
+               512 from a chunk budget), two runs each in turns: launches;
+               every host-fed batch and chunk on the card equal to its host
+               rows, the chunked visit order equal to the CPU's; host-fed
+               losses bitwise the resident ones;
+  12. remat  - train steps with the backbone checkpointed and not, in turns:
+               launches; one float32 b=16 step both ways: loss, gradients
+               and BN running statistics within tolerance;
+  13. export - port checkpoints (default and 'ss' head) exported on the card
+               and loaded: 256 frames at b=16, eager and artifact in turns,
+               and a b=7 batch bitwise equal, with their launches;
+  14. pretrained - if keras and h5py import: a random-weight Keras
                Xception's `.weights.h5` -> `train_network(pretrained=...)`,
-               2 steps at b=128, the backbone before the first step
-               bitwise the file's; else one line that says so.
-  15. prep   - the data-preparation commands through their CLI `main`:
-               `gen-fake-espi` (16 native 512x384 frames on the card) -> an
-               aggregated Zooniverse CSV of their labels (swapped axes, a
-               duplicate) -> `parse-zooniverse` (rows as the labels) ->
-               `gen-bboxes` (a box a row) -> `setup-data -a 4` (Train/ and
-               Val/ counts); `augment -n 42` of 8 files on the card (336
-               variants: files/s and the warp's share of the command's
-               time), 2 of them on the CPU against it (names identical,
-               rows within 1e-4, pixels within 1 gray level); the
-               editor's data model (no display here);
-  16. dp     - data-parallel training, Xception-331 bf16 with f32 params:
-               (a) a 1-rank NCCL group through `train_network` (b=128, 512
-               + 256 frames, 2 epochs, resumed to 3; K2 = K3 = steps: a
-               group trains eager steps, K1 34
-               per val batch), 2 steps (augmentation and dropout off)
-               bitwise the same without a group, train images/s with
-               and without the group in turns, and the step with and
-               without it in turns, timed and traced (a step's device
-               time, its NCCL kernels and copies, the idle share, the
-               kernels the group adds); (b) two NCCL ranks on the
-               one card (refused: "Duplicate GPU", printed), then two gloo
-               ranks (`chip_smoke.py --dp-child`, the backend passed
-               explicitly) through `train_network` on their shards (b=128
-               global, 2 epochs of 4 steps): each rank's resident training
-               bytes (its own shard: half the union's), train losses and
-               BatchNorm running statistics equal on both, launches per
-               rank, the shared card's images/s (labelled, no claim); the
-               sharded set's exchange (`ShardedRows`) on the card for one
-               epoch's steps: each rank's rows bitwise the union's [idx_r];
-               and one float32 b=16 step: loss and head-kernel gradient
-               against one process (rel 1e-5);
-  17. bench  - the port's benchmarks as a user runs them:
-               `tools/bench.py::main` (Xception-331 bf16, b=128, the
-               synthetic set, a warm-up and a timed epoch of BENCH_STEPS
-               steps, through the epoch form and the eager steps in turns:
-               its four keys, a finite positive rate, K2 = K3 = the graphed
-               turns' warm-up steps and captures + the eager turns'
-               steps), then `tools/bench_infer.py`'s two modes (pipelined
-               batches; the sweep captured once as a CUDA graph and
-               replayed) at b=64 and b=16 over 4096 seeded frames: frames/s
-               of each, the two outputs bitwise equal, K1 34 a batch (the
-               sweep's counted in the captured graph);
-  18. native - native resolution (`input_size=0`, uncut 512x384 frames):
-               (a) K1 against its plain version at the ten shapes of
-               Xception at 384x512 (`NATIVE_SHAPES`), b=16, 64 and 256,
-               float32 and bfloat16, with the path each takes (wgmma tiles
-               or the simple kernel) and, in bf16, its time, bound, % of
-               bound and the library pair; (b) Xception-384x512 bf16
-               served from a port checkpoint (256 frames at b=16: frames/s,
-               launches) and held, float32 and bf16, against its plain
-               version; (c) `train_network` at b=128 on 512 + 256 seeded
-               native frames, 2 epochs: finite losses, launches, the run's
-               peak of `max_memory_allocated`.  Each of 17 and 18 prints
-               its seconds.
-  19. validation - the accuracy-validation tools through their `main`,
-               at a small depth and full width, in a temporary directory:
-               `tools.dataset_a 2 32 1e-4 1024 bfloat16 331 Xception` with
-               SPNET_NVAL=256 (its result line parses, the train loss falls
-               from epoch 1 to 2, the final evaluation holds mAP, ring_acc
-               and class_acc), then on its checkpoint `eval_breakdown`
-               (256 frames), `eval_tta` (4,992 frames: plain, each flipped
-               view, the flip ensemble) and `movie_predict` (512 native
-               .bmp frames at b=512); each tool's K1-K3 launches checked and
-               its memory readings printed.
-  20. epoch  - the epoch form (`train/steps.py::make_train_epoch`: the
-               train step captured once as a CUDA graph, with the
-               augmentation and dropout generator registered, and replayed
-               once a minibatch), which `train_network` trains the resident
-               feed through on one rank, against the eager steps from the
-               same seeded model and generator seeds, cuDNN deterministic:
-               Xception-331 bf16 with f32 params at b=16 and b=128, the
-               'ss' head and geometric augmentation at b=16; 8 steps with
-               augmentation on, as two epochs of 4 with `unfreeze` between
-               (freeze_fac 0.5 before it, so the graph is captured again
-               after it): losses, parameters, BN statistics, Adam moments
-               and counts bitwise equal, and so between two eager runs
-               (cuDNN deterministic makes them so: the pools' backward
-               passes gather, with no atomics); K2 / K3 (and the 'ss'
-               variant's) launches = the warm-up steps and the captured
-               step of each
-               capture (the BatchNorm kernels' too); capture seconds;
-               both ways, the peak of
-               `max_memory_allocated` above what was in use before the run
-               and the reserved memory `empty_cache` cannot free that the
-               run added (the graph's private pool); then train images/s
-               both ways in turns (graph, eager, eager, graph; 32 steps an
-               epoch at b=16 and b=32, 16 at b=128).  (b) The same pair
-               for DarkNet19, InceptionResNetV2, MobileNet and
-               NASNetMobile at 331, bf16 with f32 params, b=32 (the
-               25-epoch sweep's batch) on the same 256 frames: every
-               leaf bitwise as above; K2 = K3 = 6 launches a pair (2
-               warm-up steps + 1 captured step, twice), so
-               `epoch_launches` holds 8 pairs of 6; capture seconds, peak
-               and held memory, images/s in turns; 20(b)'s seconds.
-  21. dataset_d - the Dataset-D tools through their `main`, at a small
-               depth and full width, in a temporary directory:
-               `dataset_d_prep 48 16 4` (gen-fake-espi's native PNG frames,
-               the train split inflated 4x by `augment`: the file names
-               those of augment's own draws, no kernel launched), then
-               `dataset_d 48 1 --arm offline` (the inflation reused
-               through its marker) and `--arm onthefly --rep R` (R = the
-               offline frames // 48): both on the resident feed's epoch
-               form, each run's K1-K3 launches, finite results, images
-               seen, images/s and stage seconds; then `eval_blur_split` (64
-               frames a set) on a checkpoint of the offline arm's state.
-  22. refgen - the reference generator's frames and their training run
-               through the tools' `main`, at a small depth and full width,
-               in a temporary directory: 2 shards of 64 frames at 331
-               drawn serially and over the pool of `os.cpu_count()`
-               workers (bitwise equal), a rerun that skips both, a shard
-               of altered versions refused; `refgen_run 1 32 1e-4 bfloat16
-               331` on 96 + 32 of them (the resident feed's epoch form,
-               its K1-K3 launches, finite results), then `eval_breakdown
-               <ckpt> refgen` and `eval_tta <ckpt> refgen h` on its
-               checkpoint, each with its K1 launches; frames/s serial and
-               pooled, and the stage seconds.
-  23. profile - `tools/profile_step.py` through its `main`, Xception-331
-               bf16: the epoch form (the graphed step) at b=16 and b=128
-               and the eager step at b=16, 5 traced steps each after a
-               warm-up: the step's ms, the busy share, the top kernels and
-               the device time by kernel class, printed with the card's
-               name and power limit; the b=16 epoch form must show the
-               loss kernel 5 times inside the graph replays (else the tool
-               raises); the class sums add up to the total; each run's
-               K1-K3 launches (the replays pass no wrapper).
-  24. batchnorm - the train-mode BatchNorm kernels (`csrc/batchnorm.cu`,
-               `ops/batchnorm.py`) at each distinct BatchNorm call of
-               Xception-331's b=16 train step (shape and the activation
-               the layer applies, recorded by hooks on one forward) and at
-               four more shapes, bf16: the output bitwise the plain
-               arithmetic from the kernels' statistics; against the plain
-               composition output and dx within 2e-2 of their scale, the
-               running statistics' update within 1e-3, dscale and dbias
-               within 1e-4 of their terms' magnitudes (and the terms
-               whose activation mask differs); six launches a forward
-               and backward; device ms forward and forward + backward of
-               the kernels, the plain composition and the library's
-               `F.batch_norm` with the activation (CUDA graphs of 20
-               calls), the bound of 10 bytes an element, and their sums
-               over the step.
-  25. adam   - the multi-tensor Adam kernel (`csrc/adam.cu`,
-               `ops/adam.py`) on Xception-331's and InceptionResNetV2-331's
-               trained leaves (seeded values): two optax and two Keras
-               updates bitwise the `_foreach` twin's (p, m, v), one launch
-               an update; device ms of one update from a CUDA graph of 20
-               for the kernel, the twin and the library's
-               `torch.optim.Adam(fused=True, capturable=True)` (a
-               yardstick the port never calls), against the bound of 28
-               bytes a leaf element.  Phase 20 holds the graphed step
-               bitwise its eager steps with the kernel in.
+               the backbone before the first step bitwise the file's;
+  15. prep   - `gen-fake-espi` -> a Zooniverse CSV -> `parse-zooniverse` ->
+               `gen-bboxes` -> `setup-data -a 4` through their `main`;
+               `augment -n 42` on the card against the CPU; the editor's
+               data model;
+  16. dp     - (a) a 1-rank NCCL group through `train_network` (2 epochs,
+               resumed to 3), 2 steps bitwise the same without a group, and
+               runs with and without the group in turns, each with its
+               launches; (b) two NCCL ranks on one card (refused, printed),
+               then two gloo ranks (`chip_smoke.py --dp-child`) on their
+               shards: resident bytes, losses and BN statistics equal on
+               both, launches, the sharded exchange bitwise the union's,
+               and one float32 step against one process;
+  17. bench  - `tools/bench.py::main` (its four keys, a finite positive
+               rate, launches) and `tools/bench_infer.py`'s two modes at
+               b=64 and b=16 (outputs bitwise equal, launches);
+  18. native - native resolution (`input_size=0`): (a) K1 against its plain
+               version at `NATIVE_SHAPES`, b=16, 64 and 256, with the path
+               each takes and, in bf16, its time, bound, % of bound and the
+               library pair; (b) the model served and held, float32 and
+               bf16, against its plain version; (c) `train_network` 2
+               epochs: finite losses, launches;
+  19. validation - `tools.dataset_a 2 32 1e-4 1024 bfloat16 331 Xception`
+               (the loss falls, the final evaluation is finite), then on its
+               checkpoint `eval_breakdown`, `eval_tta` and `movie_predict`,
+               each with its launches;
+  20. epoch  - the epoch form (`make_train_epoch`, a CUDA graph of the step
+               replayed once a minibatch) against the eager steps, cuDNN
+               deterministic: Xception-331 at b=16 and b=128, the 'ss' head
+               and geo at b=16, 8 steps as two epochs with `unfreeze`
+               between; losses, parameters, BN statistics, Adam moments and
+               counts bitwise equal, and so between two eager runs; the
+               launches of each; (b) the same for DarkNet19,
+               InceptionResNetV2, MobileNet and NASNetMobile at b=32;
+  21. dataset_d - `dataset_d_prep`, `dataset_d --arm offline` and `--arm
+               onthefly`, then `eval_blur_split`: the inflated file names,
+               the resident feed's epoch form, launches, finite results;
+  22. refgen - the reference generator's shards (serial and pooled bitwise
+               equal, a rerun skips, altered versions refused),
+               `refgen_run`, `eval_breakdown` and `eval_tta` on its
+               checkpoint, with launches;
+  23. profile - `tools/profile_step.py` through its `main`: the epoch form
+               at b=16 and b=128 and the eager step at b=16, its tables
+               printed; the loss kernel once a replay in the epoch form's
+               trace, the class sums add up, launches;
+  24. batchnorm - the train-mode BatchNorm kernels at each BatchNorm call
+               of Xception-331's b=16 train step and four more shapes,
+               bf16, against the plain composition (output bitwise the
+               twin's arithmetic, gaps within tolerance, six launches), with
+               the device times of the kernels, the plain composition and
+               `F.batch_norm` from CUDA graphs, and the bytes' bound;
+  25. adam   - the multi-tensor Adam kernel on Xception-331's and
+               InceptionResNetV2-331's trained leaves: optax and Keras
+               updates bitwise the `_foreach` twin's, one launch an update;
+               device times of the kernel, the twin and
+               `torch.optim.Adam(fused=True, capturable=True)`, and the
+               bound of 28 bytes a leaf element.
 
 Every model path runs with all seven launch counts (K1-K4's, the
 BatchNorm kernels', the Adam kernel's, and the loss kernel's count of 'ss'
 launches) set to 0 just before it and checks them all just after
-(`_want_counts`; the Adam kernel launches once an optimiser update on each
-rank: every eager step, and the warm-up steps and the captured step of
-each capture of the epoch form).  The line before the last is the kernels' JSON record (for K2-K4
+(`_want_counts`).  The line before the last is the kernels' JSON record:
+for each kernel its time, bound, plain time and library time (for K2-K4
 `ms` is the graph-timed device time at 128 x 576, beside `call_ms`,
-`host_us` and `floor_ms`; K2 adds `ss_fused_ms` and `ss_launches`;
-`feeds_launches`, `remat_launches`, `pretrained_launches` and
-`export_launches` are the counts of phases 11-14, `dp_launches` of K1-K3
-those of phase 16, `bench_launches` and `native_launches` those of phases
-17 and 18; K1 adds its native b=16 batch's `native_ms`, `native_plain_ms`,
-`native_bound_ms` and `native_library_ms`; K1-K3 add
-`validation_launches`, each tool's count in phase 19; K2-K3 add
-`epoch_launches`, phase 20's graphed runs (Xception's four and 20(b)'s
-four backbones), and K2 `epoch_ss_launches`;
-K1-K3 add `dataset_d_launches`, phase 21's runs, `refgen_launches`,
-phase 22's, and `profile_launches`, phase 23's; K2 `profile_trace_calls`,
-the loss kernel's calls in each phase-23 trace); `batchnorm_train` has
-phase 24's step sums (`library_ms`: `F.batch_norm`) and the counts of
-every train path as K2 has them; `adam_apply` phase 25's times of an
-Xception update (IRv2's beside them), `update_launches` (phase 25's
-launches an update), and the counts of every train path as K2 has them
-(`launches`: phase 6's first run);
-the last line is
-`{"ok": true, "device": {...}}`.  Exits
+`host_us` and `floor_ms`; K1 adds `graph_ms` and the native b=16 batch's
+`native_ms`, `native_plain_ms`, `native_bound_ms` and
+`native_library_ms`; `batchnorm_train` phase 24's step sums; `adam_apply`
+phase 25's Xception update, IRv2's beside it), and the launches counted on
+every path (`*_launches`; `cli_trace_launches`, the launches in the CLI's
+phase-10 trace).  The last line is `{"ok": true, "device": {...}}`.  Exits
 non-zero without a result when no CUDA device is available.  Needs torch
 and numpy, no jax; phase 10 writes and reads PNG files with PIL.
 """
@@ -849,7 +657,7 @@ def _serve(cfg, seed: int, smi: str, tag: str, n_frames: int = 64,
     running statistics) saved as a port checkpoint and reloaded through
     the CLI's loader, then n_frames seeded uint8 frames through
     `predict_in_batches` at b=batch, with every launch count set to 0 just
-    before and checked just after.  Returns (cfg, model, x, y, y_pred,
+    before and checked just after.  Returns (model, x, y, y_pred,
     counts)."""
     from spnet_tpu_torch.cli.common import load_model_and_state
     from spnet_tpu_torch.io.checkpoint import save_checkpoint
@@ -880,21 +688,18 @@ def _serve(cfg, seed: int, smi: str, tag: str, n_frames: int = 64,
     x, y = _seeded_dataset(n_frames, cfg.model.input_size, cfg.grid, seed)
     predict = make_predict_step(model)
     _zero_counts()
-    y_pred, fps = predict_in_batches(predict, x, batch, DEVICE,
-                                     verbose=False)
+    y_pred, _ = predict_in_batches(predict, x, batch, DEVICE, verbose=False)
     counts = _counts()
     want = _want_counts(cfg.model, predict_batches=n_frames // batch + 1)
-    print(f"[{tag}] predict {n_frames} frames at b={batch}: {fps:.1f} "
-          f"frames/s (time to host values)  [{smi}]")
-    print(f"[{tag}] launches in that run (warm-up batch included): "
-          f"{counts}")
+    print(f"[{tag}] predict {n_frames} frames at b={batch}: launches "
+          f"(warm-up batch included) {counts}  [{smi}]")
     if counts != want:
         fail(f"{tag}: launches {counts} != {want}")
     if y_pred.shape != (n_frames, cfg.grid.num_outputs) or \
             not np.isfinite(y_pred).all():
         fail(f"{tag}: predictions of shape {y_pred.shape}, finite "
              f"{np.isfinite(y_pred).all()}")
-    return model, x, y, y_pred, fps, counts
+    return model, x, y, y_pred, counts
 
 
 def _kernels_vs_plain(model_cfg, state: dict, x, tag: str,
@@ -932,7 +737,7 @@ def phase_slice(seed: int, smi: str) -> int:
     from spnet_tpu_torch.io.render import show_pred_ellipses
 
     cfg = ExperimentConfig()  # Xception-331, bf16 compute, f32 params
-    model, x, y, y_pred, _, counts = _serve(cfg, seed, smi, "slice")
+    model, x, y, y_pred, counts = _serve(cfg, seed, smi, "slice")
     n_frames = len(x)
     with tempfile.TemporaryDirectory() as tmp:
         yp, yt = denormalize(y_pred, cfg.grid), denormalize(y, cfg.grid)
@@ -1239,9 +1044,7 @@ def _train_run(cfg, train_ds, val_ds, tmp, smi, tag="train", **feed):
     for h in hist:
         vals = [h["train_loss"], *h["val_comps"].values()]
         print(f"[{tag}] epoch {h['epoch'] + 1}: loss {h['train_loss']:.6f} "
-              f"val {h['val_comps']['total']:.6f}  {h['img_per_sec']:.1f} "
-              f"train images/s (b={tc.batch_size}, time to the host value "
-              f"of the epoch loss)  val {h['val_fps']:.1f} frames/s  [{smi}]")
+              f"val {h['val_comps']['total']:.6f}  [{smi}]")
         if not all(np.isfinite(v) for v in vals):
             fail(f"non-finite loss in epoch {h['epoch'] + 1}: {vals}")
     payload = load_checkpoint(ckpt)[0]
@@ -1325,7 +1128,7 @@ def phase_train(seed: int, smi: str) -> dict:
     train_ds, val_ds = _seeded_split((TRAIN_FRAMES, VAL_FRAMES),
                                      cfg.model.input_size, cfg.grid, seed)
     with tempfile.TemporaryDirectory() as tmp:
-        state, hist, counts = _train_run(cfg, train_ds, val_ds, tmp, smi)
+        state, _, counts = _train_run(cfg, train_ds, val_ds, tmp, smi)
         n_params = sum(p.numel() for p in state.model.parameters())
         bns = [m for m in state.model.modules() if isinstance(m, BatchNorm)]
         if any(torch.equal(m.running_var, torch.ones_like(m.running_var))
@@ -1340,13 +1143,12 @@ def phase_train(seed: int, smi: str) -> dict:
         del state
         cfg3 = dataclasses.replace(cfg, train=dataclasses.replace(
             cfg.train, epochs=3))
-        state, hist3, _ = _train_run(cfg3, train_ds, val_ds, tmp, smi)
+        state, _, _ = _train_run(cfg3, train_ds, val_ds, tmp, smi)
         steps_per_epoch = TRAIN_FRAMES // TRAIN_BATCH
         if state.step != 3 * steps_per_epoch or \
                 state.opt_state.count != 3 * steps_per_epoch:
             fail(f"resumed run ended at step {state.step}, count "
                  f"{state.opt_state.count}")
-        img_s = hist[-1]["img_per_sec"]
         del state
     torch.cuda.empty_cache()
 
@@ -1374,7 +1176,7 @@ def phase_train(seed: int, smi: str) -> dict:
     return dict(fwd_launches=counts["spnet_loss_fwd"],
                 bwd_launches=counts["spnet_loss_bwd"],
                 bn_launches=counts["batchnorm_train"],
-                adam_launches=counts["adam_apply"], img_per_sec=img_s)
+                adam_launches=counts["adam_apply"])
 
 
 def phase_k4(seed: int, smi: str) -> dict:
@@ -1438,7 +1240,7 @@ def phase_heads(seed: int, smi: str) -> dict:
     out = {}
     for tag, mc in configs.items():
         cfg = ExperimentConfig(model=mc, train=train_cfg)
-        model, x, _, y_pred, fps, counts = _serve(cfg, seed, smi, tag)
+        model, x, _, y_pred, counts = _serve(cfg, seed, smi, tag)
         noobj = y_pred[:, 6::8]
         if mc.selective_sigmoid or mc.compound_head:
             if not ((noobj > 0) & (noobj < 1)).all():
@@ -1453,12 +1255,11 @@ def phase_heads(seed: int, smi: str) -> dict:
             train_ds, val_ds = _seeded_split(
                 (TRAIN_FRAMES, VAL_FRAMES), mc.input_size, cfg.grid, seed)
         with tempfile.TemporaryDirectory() as tmp:
-            state, hist, train_counts = _train_run(cfg, train_ds, val_ds,
-                                                   tmp, smi, tag)
+            state, _, train_counts = _train_run(cfg, train_ds, val_ds, tmp,
+                                                smi, tag)
             del state
         torch.cuda.empty_cache()
-        out[tag] = dict(predict_fps=fps, img_per_sec=hist[-1]["img_per_sec"],
-                        predict_counts=counts, train_counts=train_counts)
+        out[tag] = dict(predict_counts=counts, train_counts=train_counts)
         if mc.selective_sigmoid:
             x16 = torch.from_numpy(train_ds.x[:16]).to(DEVICE)
             y16 = torch.from_numpy(train_ds.y[:16]).to(DEVICE)
@@ -1480,14 +1281,10 @@ def phase_heads(seed: int, smi: str) -> dict:
                 fail(f"{tag}: f32 step with fused=False, launches {counts} "
                      f"!= {want}")
             out[tag]["k4_bwd_launches"] = counts["selective_sigmoid_bwd"]
-    for tag, r in out.items():
-        print(f"[heads] {tag}: predict {r['predict_fps']:.1f} frames/s at "
-              f"b=16, train {r['img_per_sec']:.1f} images/s at "
-              f"b={TRAIN_BATCH} (epoch 2)  [{smi}]")
     return out
 
 
-def _card_vs_cpu(model_cfg, state: dict, x, tag: str) -> float:
+def _card_vs_cpu(model_cfg, state: dict, x, tag: str):
     """The same weights in float32, eval mode, on the card and on the CPU:
     relative error <= ZOO_CPU_RTOL of the CPU output's scale."""
     import dataclasses
@@ -1510,7 +1307,6 @@ def _card_vs_cpu(model_cfg, state: dict, x, tag: str) -> float:
           f"max_abs_err {err:.3e} (rel {rel:.2e}, tol {ZOO_CPU_RTOL})")
     if not (torch.isfinite(outs[0]).all() and rel <= ZOO_CPU_RTOL):
         fail(f"{tag}: float32 eval, card vs CPU relative error {rel}")
-    return rel
 
 
 def phase_zoo(seed: int, smi: str) -> dict:
@@ -1527,27 +1323,21 @@ def phase_zoo(seed: int, smi: str) -> dict:
                             seed=seed)
     train_ds = val_ds = None
     out = {}
-    gib = 2.0 ** 30
     for backbone in ZOO_BACKBONES:
         tag = f"zoo {backbone}"
         cfg = ExperimentConfig(model=ModelConfig(backbone=backbone),
                                train=train_cfg)
-        torch.cuda.reset_peak_memory_stats()
-        model, x, _, _, fps, _ = _serve(cfg, seed, smi, tag)
-        serve_mem = torch.cuda.max_memory_allocated() / gib
+        model, x, _, _, _ = _serve(cfg, seed, smi, tag)
         state = {k: v.cpu() for k, v in model.state_dict().items()}
         del model
-        rel = _card_vs_cpu(cfg.model, state, x[:2], tag)
+        _card_vs_cpu(cfg.model, state, x[:2], tag)
         if train_ds is None:
             train_ds, val_ds = _seeded_split(
                 (TRAIN_FRAMES, VAL_FRAMES), cfg.model.input_size, cfg.grid,
                 seed)
         torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
         with tempfile.TemporaryDirectory() as tmp:
-            st, hist, counts = _train_run(cfg, train_ds, val_ds, tmp, smi,
-                                          tag)
-            train_mem = torch.cuda.max_memory_allocated() / gib
+            st, _, counts = _train_run(cfg, train_ds, val_ds, tmp, smi, tag)
             del st
             cfg3 = dataclasses.replace(cfg, train=dataclasses.replace(
                 cfg.train, epochs=3))
@@ -1568,16 +1358,7 @@ def phase_zoo(seed: int, smi: str) -> dict:
             fail(f"{tag}: f32 step launches {step_counts}")
         del x16, y16
         torch.cuda.empty_cache()
-        out[backbone] = dict(size=cfg.model.input_size, predict_fps=fps,
-                             img_per_sec=hist[-1]["img_per_sec"],
-                             serve_gib=serve_mem, train_gib=train_mem,
-                             train_counts=counts, cpu_rel=rel)
-    for backbone, r in out.items():
-        print(f"[zoo] {backbone}-{r['size']} bf16: predict "
-              f"{r['predict_fps']:.1f} "
-              f"frames/s at b=16 (peak {r['serve_gib']:.2f} GiB), train "
-              f"{r['img_per_sec']:.1f} images/s at b={TRAIN_BATCH} (epoch "
-              f"2; peak {r['train_gib']:.2f} GiB)  [{smi}]")
+        out[backbone] = dict(train_counts=counts)
     return out
 
 
@@ -1591,18 +1372,16 @@ def phase_tta(seed: int, smi: str) -> dict:
     from spnet_tpu_torch.train.steps import make_predict_step
 
     cfg = ExperimentConfig()  # Xception-331, bf16 compute, f32 params
-    model, x, y, _, _, _ = _serve(cfg, seed, smi, "tta")
+    model, x, y, _, _ = _serve(cfg, seed, smi, "tta")
     n, views = len(x), 1 + len(TTA_MODES)
     xd = torch.from_numpy(x).to(DEVICE)
     _zero_counts()
-    y_tta, fps = predict_tta(make_predict_step(model), xd, 16, DEVICE,
-                             cfg.grid, modes=TTA_MODES)
+    y_tta, _ = predict_tta(make_predict_step(model), xd, 16, DEVICE,
+                           cfg.grid, modes=TTA_MODES)
     counts = _counts()
     want = _want_counts(cfg.model, predict_batches=views * (-(-n // 16) + 1))
     print(f"[tta] predict_tta, direct + {TTA_MODES}, {n} frames at b=16: "
-          f"{fps:.1f} frames/s over all views (time to host values)  "
-          f"[{smi}]")
-    print(f"[tta] launches in that run (a warm-up batch per view): {counts}")
+          f"launches (a warm-up batch per view) {counts}  [{smi}]")
     if counts != want:
         fail(f"tta: predict_tta launches {counts} != {want}")
     if y_tta.shape != (n, cfg.grid.num_outputs) or \
@@ -1621,9 +1400,9 @@ def phase_tta(seed: int, smi: str) -> dict:
     want = _want_counts(cfg.model,
                         predict_batches=views * (-(-n // infer_bs) + 1))
     print(f"[tta] evaluate_network(tta='h,v,hv'), {n} frames at its sweep "
-          f"batch {infer_bs}: {res['fps']:.1f} frames/s over all views, mAP "
-          f"{res['mAP']:.6f}, mean_pix_err {res['mean_pix_err']:.3f} "
-          f"(random weights); launches {eval_counts}  [{smi}]")
+          f"batch {infer_bs}: mAP {res['mAP']:.6f}, mean_pix_err "
+          f"{res['mean_pix_err']:.3f} (random weights); launches "
+          f"{eval_counts}  [{smi}]")
     if eval_counts != want:
         fail(f"tta: evaluate launches {eval_counts} != {want}")
     if not (np.isfinite(res["mAP"]) and np.isfinite(res["mean_pix_err"])
@@ -1631,8 +1410,7 @@ def phase_tta(seed: int, smi: str) -> dict:
         fail(f"tta: metrics {res}")
     del model
     torch.cuda.empty_cache()
-    return dict(predict_fps=fps, eval_fps=res["fps"],
-                launches=counts["sepconv_infer"],
+    return dict(launches=counts["sepconv_infer"],
                 eval_launches=eval_counts["sepconv_infer"])
 
 
@@ -1640,9 +1418,6 @@ def phase_tta(seed: int, smi: str) -> dict:
 # Phase 10: the synthetic feed and geometric training
 # ---------------------------------------------------------------------------
 SYNTH_TRAIN, SYNTH_VAL, GEO_REPEATS = 512, 256, 2
-#: the geo step's spans (`utils/profiling.py::span`) by their short names
-GEO_STAGES = {"spnet.step.geo_augment": "geo_augment",
-              "spnet.step.grid_encode": "grid_encode"}
 # the noise-free render, card vs CPU: share of pixels a float32 threshold
 # test may flip (the tests' bound against JAX)
 RENDER_FLIP_SHARE = 1e-3
@@ -1651,100 +1426,19 @@ WARP_ATOL = 2e-4         # geo warp of [-1, 1] frames, card vs CPU
 ROWS_ATOL = 1e-4         # remapped rows (native pixels), card vs CPU
 ANGLE_LANE_ATOL = 2e-6   # the encoder's cos / sin lanes (float64 cos)
 GEN_FRAMES, PROFILE_BATCH = 96, 16
-RENDER_BATCH = 256  # synthetic_dataset's render batch
+#: the repo's kernels whose launches the CLI's trace is searched for
+TRACED_KERNELS = ("wgmma_kernel", "simple_kernel", "loss_kernel",
+                  "grad_scale_kernel")
 
 
-def _sync_s(fn):
-    """(result, seconds) of fn() between two synchronizes."""
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    out = fn()
-    torch.cuda.synchronize()
-    return out, time.perf_counter() - t0
-
-
-def trace_summary(path: str) -> dict:
-    """From a torch.profiler chrome trace: the device time of all kernels,
-    of the kernels launched inside each GEO_STAGES span (a launch's
-    correlation id joins the host call to its kernel), and the kernel
-    names, in microseconds."""
+def _trace_launches(path: str) -> dict:
+    """Launches of each of TRACED_KERNELS (a part of the kernel's name) in
+    a torch.profiler chrome trace, and of all kernels under 'all'."""
     with open(path) as f:
-        events = json.load(f)["traceEvents"]
-    kernels = {}
-    names = {}
-    for e in events:
-        if e.get("cat") == "kernel":
-            corr = e.get("args", {}).get("correlation")
-            kernels[corr] = kernels.get(corr, 0.0) + e.get("dur", 0.0)
-            names[e["name"]] = names.get(e["name"], 0) + 1
-    launches = [e for e in events  # runtime and low-level API calls
-                if e.get("cat", "").startswith("cuda_")
-                and "correlation" in e.get("args", {})]
-    stages = {k: 0.0 for k in GEO_STAGES.values()}
-    for a in events:
-        if a.get("cat") != "cpu_op" or a.get("name") not in GEO_STAGES:
-            continue
-        t0, t1 = a["ts"], a["ts"] + a["dur"]
-        stages[GEO_STAGES[a["name"]]] += sum(
-            kernels.get(c["args"]["correlation"], 0.0) for c in launches
-            if c.get("tid") == a.get("tid") and t0 <= c["ts"] <= t1)
-    return dict(total_us=sum(kernels.values()), stages_us=stages,
-                names=names)
-
-
-def _ours(names: dict) -> dict:
-    """Launches of the repo's kernels among a trace's kernel names."""
-    ours = ("wgmma_kernel", "simple_kernel", "loss_kernel",
-            "grad_scale_kernel", "sel_sigmoid_fwd_kernel",
-            "sel_sigmoid_bwd_kernel")
-    found = {}
-    for name, n in names.items():
-        for k in ours:
-            if k in name:
-                found[k] = found.get(k, 0) + n
-    return found
-
-
-def _synth_breakdown(seed: int, smi: str) -> dict:
-    """One render batch of RENDER_BATCH frames, stage by stage: scene
-    sampling (host numpy), the noise-free render, the noise stage (a
-    generator a frame), the resize to 331^2, the truncating uint8 copy to
-    the host, and the PNG encoding of 32 of the native frames (what
-    gen-fake-espi writes); twice, the first a warm-up."""
-    import io
-
-    from PIL import Image
-
-    from spnet_tpu_torch.data import synth
-    from spnet_tpu_torch.ops.resize import resize
-
-    for rep in ("first", "second"):
-        scenes, t_scene = _sync_s(lambda: [synth.sample_scene(seed, f)
-                                           for f in range(RENDER_BATCH)])
-        arrays = synth.scenes_to_arrays(scenes)
-        clean, t_clean = _sync_s(lambda: synth.render_clean(arrays,
-                                                            device=DEVICE))
-        noisy, t_noise = _sync_s(lambda: synth.add_noise(
-            clean, arrays["noise_seed"]))
-        small, t_resize = _sync_s(lambda: resize(noisy, (331, 331)))
-        _, t_copy = _sync_s(lambda: torch.clamp(small, 0, 255).to(
-            torch.uint8).cpu().numpy())
-        _, t_gens = _sync_s(lambda: [
-            torch.Generator(device=DEVICE).manual_seed(int(s))
-            for s in arrays["noise_seed"]])
-        native = noisy[:32].to(torch.uint8).cpu().numpy()
-        _, t_png = _sync_s(lambda: [
-            Image.fromarray(f).save(io.BytesIO(), format="PNG")
-            for f in native])
-        res = dict(scene_s=t_scene, clean_s=t_clean, noise_s=t_noise,
-                   generators_s=t_gens, resize_s=t_resize, copy_s=t_copy,
-                   png32_s=t_png)
-        print(f"[synth] one batch of {RENDER_BATCH} frames ({rep} time), "
-              "seconds between synchronizes: "
-              + ", ".join(f"{k[:-2]} {v:.4f}" for k, v in res.items())
-              + f" (generators: creating and seeding {RENDER_BATCH} alone;"
-              f" png32: PIL's PNG of 32 native frames)  [{smi}]")
-    return res
+        names = [e["name"] for e in json.load(f)["traceEvents"]
+                 if e.get("cat") == "kernel"]
+    out = {k: sum(k in name for name in names) for k in TRACED_KERNELS}
+    return dict(out, all=len(names))
 
 
 def _card_vs_cpu_synth(seed: int, train_ds) -> dict:
@@ -1813,68 +1507,12 @@ def _card_vs_cpu_synth(seed: int, train_ds) -> dict:
                 encode_bitwise=bitwise)
 
 
-def _geo_step_profile(cfg, train_ds, tmp: str, smi: str) -> dict:
-    """Train steps of Xception-331 bf16 at b=128 on the resident synthetic
-    set: 10 geo steps and 10 without geo timed in turns to the host value
-    of the last loss, then 3 geo steps under `utils.profiling.trace`,
-    whose trace gives the geo stages' share of the device time."""
-    from spnet_tpu_torch.models.spnet import build_model
-    from spnet_tpu_torch.train.state import create_train_state
-    from spnet_tpu_torch.train.steps import make_train_step
-    from spnet_tpu_torch.utils.profiling import trace
-
-    model = build_model(cfg.model, device=DEVICE,
-                        generator=torch.Generator().manual_seed(0))
-    state = create_train_state(model, lambda step: 1e-5)
-    feed = [torch.from_numpy(a).to(DEVICE) for a in (
-        train_ds.x, train_ds.y, train_ds.rows, train_ds.row_mask)]
-    gen = torch.Generator(device=DEVICE).manual_seed(0)
-    idx = torch.arange(TRAIN_BATCH, device=DEVICE)
-    steps = {geo: make_train_step(model, cfg.loss_weights, geo_augment=geo,
-                                  grid=cfg.grid) for geo in (False, True)}
-
-    def run(geo, n):
-        args = feed if geo else feed[:2]
-        for _ in range(n):
-            _, met = steps[geo](state, *args, idx, gen)
-        return float(met["loss"])
-
-    run(True, 2)
-    run(False, 2)
-    ms = {False: [], True: []}
-    for geo in (True, False, False, True):
-        _, sec = _sync_s(lambda: run(geo, 10))
-        ms[geo].append(1e3 * sec / 10)
-    logdir = os.path.join(tmp, "geo_profile")
-    with trace(logdir):
-        run(True, 3)
-    (path,) = [os.path.join(logdir, f) for f in os.listdir(logdir)]
-    summ = trace_summary(path)
-    share = {k: v / max(summ["total_us"], 1e-9)
-             for k, v in summ["stages_us"].items()}
-    mc = cfg.model
-    print(f"[synth] geo train step, {mc.backbone}-{mc.input_size} "
-          f"{mc.compute_dtype} b={TRAIN_BATCH}: "
-          f"{ms[True]} ms with geo, {ms[False]} ms without (10 steps each, "
-          f"in turns); 3 profiled steps: device time {summ['total_us']:.0f} "
-          f"us, geo_augment {summ['stages_us']['geo_augment']:.0f} us "
-          f"({100 * share['geo_augment']:.2f} %), grid_encode "
-          f"{summ['stages_us']['grid_encode']:.0f} us "
-          f"({100 * share['grid_encode']:.2f} %)  [{smi}]")
-    if summ["total_us"] <= 0:
-        fail("synth: the profiled geo steps show no device time")
-    del state, model, feed
-    torch.cuda.empty_cache()
-    return dict(geo_ms=ms[True], plain_ms=ms[False], share=share,
-                device_us=summ["total_us"], stages_us=summ["stages_us"])
-
-
 def _cli_gen_and_profile(tmp: str, smi: str) -> dict:
     """`gen-fake-espi -n GEN_FRAMES --all`, then `train --geo_augment
     --epoch_repeats GEO_REPEATS --use_tb --profile` for 1 epoch at
     b=PROFILE_BATCH on those files, both through the CLI's `main` (in this
     process, so the launch counts read), with every count set to 0 before
-    the train run and checked after."""
+    the train run and checked after; its one trace must hold kernels."""
     import glob
 
     from spnet_tpu_torch.cli import gen_fake_espi, train
@@ -1883,22 +1521,19 @@ def _cli_gen_and_profile(tmp: str, smi: str) -> dict:
     cwd = os.getcwd()
     os.chdir(tmp)
     try:
-        _, t_gen = _sync_s(lambda: gen_fake_espi.main(
-            ["-d", "gen", "-n", str(GEN_FRAMES), "--all"]))
+        gen_fake_espi.main(["-d", "gen", "-n", str(GEN_FRAMES), "--all"])
         n_train = len(glob.glob("gen/Train/*.png"))
         n_val = len(glob.glob("gen/Val/*.png"))
         split = sum(i / GEN_FRAMES < 0.8 for i in range(GEN_FRAMES))
         print(f"[synth] gen-fake-espi -n {GEN_FRAMES} --all: {n_train} "
-              f"Train + {n_val} Val pairs in {t_gen:.2f} s "
-              f"({GEN_FRAMES / t_gen:.1f} frames/s, PNG encoding "
-              f"included)  [{smi}]")
+              f"Train + {n_val} Val pairs")
         if (n_train, n_val) != (split, GEN_FRAMES - split):
             fail(f"gen-fake-espi wrote {n_train} + {n_val} frames")
         _zero_counts()
-        _, t_train = _sync_s(lambda: train.main(
-            ["-d", "gen", "-b", str(PROFILE_BATCH), "-e", "1", "-w", "ck",
-             "--name", "prof", "--geo_augment", "--epoch_repeats",
-             str(GEO_REPEATS), "--use_tb", "--profile", "--no-eval"]))
+        train.main(["-d", "gen", "-b", str(PROFILE_BATCH), "-e", "1", "-w",
+                    "ck", "--name", "prof", "--geo_augment",
+                    "--epoch_repeats", str(GEO_REPEATS), "--use_tb",
+                    "--profile", "--no-eval"])
         counts = _counts()
         (log_dir,) = glob.glob("logs/prof_*")
         traces = [os.path.abspath(t) for t in
@@ -1910,36 +1545,28 @@ def _cli_gen_and_profile(tmp: str, smi: str) -> dict:
                             train_steps=_epoch_calls(steps))
         events = glob.glob(os.path.join(log_dir, "tb", "events.*"))
         print(f"[synth] train --geo_augment --epoch_repeats {GEO_REPEATS} "
-              f"--use_tb --profile, 1 epoch at b={PROFILE_BATCH}: "
-              f"{t_train:.1f} s; launches {counts}; traces "
-              f"{[os.path.basename(t) for t in traces]}; tb {len(events)}")
+              f"--use_tb --profile, 1 epoch at b={PROFILE_BATCH}: launches "
+              f"{counts}; traces {[os.path.basename(t) for t in traces]}; "
+              f"tb {len(events)}  [{smi}]")
         if counts != want:
             fail(f"synth: CLI train launches {counts} != {want}")
         if len(events) != 1:
             fail(f"synth: CLI train tb event files {events}")
         if len(traces) != 1 or os.path.getsize(traces[0]) == 0:
             fail(f"synth: profile traces {traces}")
-        summ = trace_summary(traces[0])
+        traced = _trace_launches(traces[0])
     finally:
         os.chdir(cwd)
-    ours = _ours(summ["names"])
-    share = {k: v / max(summ["total_us"], 1e-9)
-             for k, v in summ["stages_us"].items()}
-    print(f"[synth] the CLI's trace: {len(summ['names'])} kernel names, "
-          f"device time {summ['total_us']:.0f} us; the repo's kernels in "
-          f"it: {ours}; geo stages {summ['stages_us']} us "
-          f"({ {k: round(100 * v, 3) for k, v in share.items()} } %)")
-    if summ["total_us"] <= 0:
+    if not traced["all"]:
         fail("synth: the CLI's trace holds no kernel")
-    return dict(gen_fps=GEN_FRAMES / t_gen, counts=counts, ours=ours,
-                share=share, trace_mb=os.path.getsize(traces[0]) / 2 ** 20)
+    return dict(counts=counts, traced=traced)
 
 
-def phase_synth(seed: int, smi: str, phase6_img_s: float) -> dict:
+def phase_synth(seed: int, smi: str) -> dict:
     """The synthetic feed on the card, the card against the CPU, geometric
     training with epoch repeats and TensorBoard through `train_network`
-    (2 epochs, then resumed to 3), the geo steps' device share, and the
-    gen-fake-espi -> train --profile chain through the CLI."""
+    (2 epochs, then resumed to 3), and the gen-fake-espi -> train
+    --profile chain through the CLI."""
     import dataclasses
 
     from spnet_tpu_torch.config import ExperimentConfig, TrainConfig
@@ -1949,21 +1576,16 @@ def phase_synth(seed: int, smi: str, phase6_img_s: float) -> dict:
     cfg = ExperimentConfig(train=TrainConfig(
         batch_size=TRAIN_BATCH, epochs=2, save_every=1, seed=seed,
         geo_augment=True, epoch_repeats=GEO_REPEATS, use_tb=True))
-    out = dict(breakdown=_synth_breakdown(seed, smi))
-    (train_ds, t_train) = _sync_s(lambda: synthetic_dataset(
+    train_ds = synthetic_dataset(
         SYNTH_TRAIN, cfg.grid, seed=seed, input_size=cfg.model.input_size,
-        batch_size=TRAIN_BATCH, device=DEVICE))
-    (val_ds, t_val) = _sync_s(lambda: synthetic_dataset(
+        batch_size=TRAIN_BATCH, device=DEVICE)
+    val_ds = synthetic_dataset(
         SYNTH_VAL, cfg.grid, seed=seed + 1, input_size=cfg.model.input_size,
-        device=DEVICE))
-    out["frames_per_s"] = (SYNTH_TRAIN / t_train, SYNTH_VAL / t_val)
-    print(f"[synth] synthetic_dataset on the card: {SYNTH_TRAIN} train "
-          f"frames in {t_train:.2f} s ({out['frames_per_s'][0]:.1f} "
-          f"frames/s, first call), {SYNTH_VAL} val frames in {t_val:.2f} s "
-          f"({out['frames_per_s'][1]:.1f} frames/s); uint8 at "
-          f"{cfg.model.input_size}^2, labels and rows from the host codec  "
-          f"[{smi}]")
+        device=DEVICE)
     size = cfg.model.input_size
+    print(f"[synth] synthetic_dataset on the card: {SYNTH_TRAIN} train + "
+          f"{SYNTH_VAL} val frames, uint8 at {size}^2, labels and rows from "
+          f"the host codec  [{smi}]")
     if not (train_ds.x.shape == (SYNTH_TRAIN, size, size, 1)
             and val_ds.x.shape == (SYNTH_VAL, size, size, 1)
             and train_ds.x.dtype == np.uint8
@@ -1972,11 +1594,11 @@ def phase_synth(seed: int, smi: str, phase6_img_s: float) -> dict:
             and 10 < train_ds.x.mean() < 200):
         fail(f"synth: dataset {train_ds.x.shape} {train_ds.x.dtype}, mean "
              f"{train_ds.x.mean()}, rows {train_ds.row_mask.sum()}")
-    out.update(_card_vs_cpu_synth(seed, train_ds))
+    out = _card_vs_cpu_synth(seed, train_ds)
 
     with tempfile.TemporaryDirectory() as tmp:
-        state, hist, counts = _train_run(cfg, train_ds, val_ds, tmp, smi,
-                                         "synth")
+        state, _, counts = _train_run(cfg, train_ds, val_ds, tmp, smi,
+                                      "synth")
         del state
         (name,) = os.listdir(os.path.join(tmp, "log", "tb"))
         events = list(read_events(os.path.join(tmp, "log", "tb", name)))
@@ -1985,21 +1607,14 @@ def phase_synth(seed: int, smi: str, phase6_img_s: float) -> dict:
             fail(f"synth: tb scalars {sorted(tags)}")
         cfg3 = dataclasses.replace(cfg, train=dataclasses.replace(
             cfg.train, epochs=3))
-        state, hist3, counts3 = _train_run(cfg3, train_ds, val_ds, tmp, smi,
-                                           "synth")
+        state, _, counts3 = _train_run(cfg3, train_ds, val_ds, tmp, smi,
+                                       "synth")
         spe = (SYNTH_TRAIN // TRAIN_BATCH) * GEO_REPEATS
         if state.step != 3 * spe or state.opt_state.count != 3 * spe:
             fail(f"synth: resumed run ended at step {state.step}")
         del state
         torch.cuda.empty_cache()
-        out["img_per_sec"] = [h["img_per_sec"] for h in hist + hist3]
-        print(f"[synth] geo train images/s, b={TRAIN_BATCH}, repeats "
-              f"{GEO_REPEATS}, epochs 1-3 (3 resumed): "
-              f"{[round(v, 1) for v in out['img_per_sec']]}; phase 6 "
-              f"(no geo, seeded noise frames) epoch 2: {phase6_img_s:.1f}  "
-              f"[{smi}]")
         out["train_counts"], out["resume_counts"] = counts, counts3
-        out["profile"] = _geo_step_profile(cfg, train_ds, tmp, smi)
         out["cli"] = _cli_gen_and_profile(tmp, smi)
     return out
 
@@ -2009,40 +1624,13 @@ def phase_synth(seed: int, smi: str, phase6_img_s: float) -> dict:
 # ---------------------------------------------------------------------------
 FEED_TRAIN, FEED_VAL, FEED_CHUNK = 2048, 256, 512
 FEEDS = {"resident": True, "host-fed": False, "chunked": "chunked"}
-PROFILED_STEPS = 5   # host-fed / resident steps under torch.profiler
-REMAT_STEPS = 5      # per timed run, 4 runs in turns (off, on, on, off)
+REMAT_STEPS = 5      # a run, 4 runs in turns (off, on, on, off)
 # float32 b=16 step, remat on vs off: the recompute runs the same kernels
 # on the same inputs (cuDNN deterministic during the check), so only an
 # order that varies between runs could part them
 REMAT_RTOL = 1e-5
 REMAT_STATS_RTOL = 1e-6
 EXPORT_FRAMES = 256  # per sweep, b=16, eager and artifact in turns
-
-
-def device_idle(path: str) -> dict:
-    """From a torch.profiler chrome trace: the span from the first device
-    event (kernel, copy, set) to the end of the last, the time covered by
-    at least one of them (the union of their intervals), the copies' own
-    time, and the idle share of the span, in microseconds."""
-    with open(path) as f:
-        events = json.load(f)["traceEvents"]
-    dev = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy",
-                                                 "gpu_memset")
-           and "dur" in e]
-    if not dev:
-        fail(f"no device event in the trace {path}")
-    iv = sorted((e["ts"], e["ts"] + e["dur"]) for e in dev)
-    busy, (lo, hi) = 0.0, iv[0]
-    for a, b in iv[1:]:
-        if a > hi:
-            busy, lo, hi = busy + hi - lo, a, b
-        else:
-            hi = max(hi, b)
-    busy += hi - lo
-    span = max(b for _, b in iv) - iv[0][0]
-    return dict(span_us=span, busy_us=busy, idle=1.0 - busy / span,
-                copy_us=sum(e["dur"] for e in dev
-                            if e["cat"] == "gpu_memcpy"))
 
 
 def _feed_batches(name, rows, train_ds, resident):
@@ -2151,64 +1739,12 @@ def _feed_losses(cfg, train_ds, seed: int) -> dict:
     return losses
 
 
-def _feed_profiles(cfg, train_ds, seed: int, tmp: str, smi: str) -> dict:
-    """PROFILED_STEPS train steps of the resident and the host-fed feed
-    under `utils.profiling.trace`, after 2 warm-up steps each, in turns
-    (resident, host-fed, host-fed, resident: the first trace of a process
-    pays the profiler's start-up): the device's idle share of each run
-    from its trace."""
-    from spnet_tpu_torch.models.spnet import build_model
-    from spnet_tpu_torch.train.loop import epoch_order
-    from spnet_tpu_torch.train.state import create_train_state
-    from spnet_tpu_torch.train.steps import make_train_step
-    from spnet_tpu_torch.utils.profiling import trace
-
-    model = build_model(cfg.model, device=DEVICE,
-                        generator=torch.Generator().manual_seed(seed))
-    state = create_train_state(model, lambda step: 1e-5)
-    resident = (torch.from_numpy(train_ds.x).to(DEVICE),
-                torch.from_numpy(train_ds.y).to(DEVICE))
-    gen = torch.Generator(device=DEVICE).manual_seed(seed)
-    rows = epoch_order(FEED_TRAIN, TRAIN_BATCH, seed, 0)
-    out = {"resident": [], "host-fed": []}
-    for k, name in enumerate(("resident", "host-fed", "host-fed",
-                              "resident")):
-        step = make_train_step(model, cfg.loss_weights,
-                               indexed="epoch" if name == "resident"
-                               else False)
-
-        def run(r):
-            for b in _feed_batches(name, r, train_ds, resident):
-                _, met = step(state, *b, gen)
-            return float(met["loss"])
-
-        run(rows[:2])
-        logdir = os.path.join(tmp, f"profile_{k}")
-        with trace(logdir):
-            run(rows[2:2 + PROFILED_STEPS])
-        (path,) = [os.path.join(logdir, f) for f in os.listdir(logdir)]
-        out[name].append(device_idle(path))
-    for name, runs in out.items():
-        print(f"[feeds] {name}, {PROFILED_STEPS} profiled steps, 2 runs: "
-              "device span " + ", ".join(
-                  f"{r['span_us'] / 1e3:.2f}" for r in runs) + " ms, busy "
-              + ", ".join(f"{r['busy_us'] / 1e3:.2f}" for r in runs)
-              + " ms, idle " + ", ".join(f"{100 * r['idle']:.2f}"
-                                         for r in runs)
-              + " %, copies " + ", ".join(f"{r['copy_us'] / 1e3:.3f}"
-                                          for r in runs) + f" ms  [{smi}]")
-    del state, model, resident
-    torch.cuda.empty_cache()
-    return out
-
-
 def phase_feeds(seed: int, smi: str) -> dict:
     """The three feeds of `train_network` on Xception-331 bf16 at b=128:
     FEED_TRAIN seeded frames, 2 epochs a run (augmentation on; the chunked
     feed in 4 chunks of FEED_CHUNK), two runs of each in turns, their
-    images/s and launch counts; the
-    staging against the host; 2 steps resident vs host-fed; the host-fed
-    steps' idle share from a trace."""
+    launch counts; the staging against the host; 2 steps resident vs
+    host-fed."""
     from spnet_tpu_torch.config import ExperimentConfig, TrainConfig
     from spnet_tpu_torch.train.chunked import plan_chunks
 
@@ -2224,36 +1760,25 @@ def phase_feeds(seed: int, smi: str) -> dict:
           f"budget {budget} B -> plan_chunks (chunk_len, n_chunks) {plan}")
     if plan != (FEED_CHUNK, FEED_TRAIN // FEED_CHUNK):
         fail(f"feeds: chunk plan {plan}")
-    out = {name: dict(img_per_sec=[]) for name in FEEDS}
+    out = {}
     with tempfile.TemporaryDirectory() as tmp:
-        # in turns, then in the reverse order: a later run of a process
-        # can be slower (or faster) than an earlier one
         for name in list(FEEDS) + list(reversed(FEEDS)):
             with tempfile.TemporaryDirectory(dir=tmp) as run_dir:
-                state, hist, counts = _train_run(
+                state, _, counts = _train_run(
                     cfg, train_ds, val_ds, run_dir, smi, f"feeds {name}",
                     device_data=FEEDS[name], chunk_budget=budget)
                 del state
             torch.cuda.empty_cache()
-            out[name]["img_per_sec"].append([h["img_per_sec"]
-                                             for h in hist])
-            out[name]["counts"] = counts
-        rates = "; ".join(
-            f"{n} {[[round(v, 1) for v in run] for run in r['img_per_sec']]}"
-            for n, r in out.items())
-        print(f"[feeds] train images/s at b={TRAIN_BATCH}, [epoch 1, epoch "
-              f"2] of each run, runs in turns and reversed: {rates}  "
-              f"[{smi}]")
-        out["streams"] = _feed_streams_vs_host(train_ds, seed)
-        out["losses"] = _feed_losses(cfg, train_ds, seed)
-        out["profile"] = _feed_profiles(cfg, train_ds, seed, tmp, smi)
+            out[name] = dict(counts=counts)
+    out["streams"] = _feed_streams_vs_host(train_ds, seed)
+    out["losses"] = _feed_losses(cfg, train_ds, seed)
     return out
 
 
 def phase_remat(seed: int, smi: str) -> dict:
     """Xception-331 bf16 train steps at b=128 with remat off and on, in
-    turns: step time and peak memory each; then one float32 b=16 step both
-    ways: the same loss, gradients and BN running statistics."""
+    turns, and their launches; then one float32 b=16 step both ways: the
+    same loss, gradients and BN running statistics."""
     import dataclasses
 
     from spnet_tpu_torch.config import ExperimentConfig
@@ -2272,38 +1797,27 @@ def phase_remat(seed: int, smi: str) -> dict:
     state = create_train_state(model, lambda step: 1e-5)
     step = make_train_step(model, cfg.loss_weights, indexed=False)
     gen = torch.Generator(device=DEVICE).manual_seed(seed)
-    gib = 2.0 ** 30
 
     def run(remat, n):
         model.remat = remat
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
         for _ in range(n):
             _, met = step(state, x, y, gen)
         float(met["loss"])
-        return (1e3 * (time.perf_counter() - t0) / n,
-                torch.cuda.max_memory_allocated() / gib)
 
     run(False, 2)
     run(True, 2)
     _zero_counts()
-    res = {False: [], True: []}
     for remat in (False, True, True, False):
-        res[remat].append(run(remat, REMAT_STEPS))
+        run(remat, REMAT_STEPS)
     counts = _counts()
     want = dict(_want_counts(cfg.model, train_steps=4 * REMAT_STEPS),
                 batchnorm_train=_bn_launches(cfg.model, 2 * REMAT_STEPS,
                                              remat=False)
                 + _bn_launches(cfg.model, 2 * REMAT_STEPS, remat=True))
+    print(f"[remat] b={TRAIN_BATCH}, {REMAT_STEPS} steps a run, runs in "
+          f"turns off/on/on/off: launches {counts}  [{smi}]")
     if counts != want:
         fail(f"remat: launches {counts} != {want}")
-    for remat, r in res.items():
-        print(f"[remat] remat {remat}: step "
-              f"{[round(ms, 2) for ms, _ in r]} ms, peak "
-              f"{[round(g, 2) for _, g in r]} GiB (b={TRAIN_BATCH}, "
-              f"{REMAT_STEPS} steps a run, runs in turns off/on/on/off)  "
-              f"[{smi}]")
     del state, model, step
     torch.cuda.empty_cache()
 
@@ -2347,16 +1861,14 @@ def phase_remat(seed: int, smi: str) -> dict:
         fail(f"remat: float32 step, loss rel {l_rel}, gradients {g_rel}, "
              f"BN statistics {s_rel}")
     torch.cuda.empty_cache()
-    return dict(step_ms={k: [ms for ms, _ in v] for k, v in res.items()},
-                peak_gib={k: [g for _, g in v] for k, v in res.items()},
-                counts=counts)
+    return dict(counts=counts)
 
 
 def phase_export(seed: int, smi: str) -> dict:
     """Xception-331 bf16 port checkpoints (default and 'ss' head) exported
     on the card and loaded; EXPORT_FRAMES seeded frames at b=16 through
     `predict_in_batches`, eager and artifact in turns, and a b=7 batch:
-    equal bitwise, with the launch counts; export time and frames/s."""
+    equal bitwise, with the launch counts."""
     from spnet_tpu_torch.cli.common import load_model_and_state
     from spnet_tpu_torch.config import ExperimentConfig, ModelConfig
     from spnet_tpu_torch.io.checkpoint import save_checkpoint
@@ -2382,24 +1894,19 @@ def phase_export(seed: int, smi: str) -> dict:
             ck, art = os.path.join(tmp, "ck"), os.path.join(tmp, "art")
             save_checkpoint(ck, model.state_dict(), cfg)
             del model
-            _, t_export = _sync_s(lambda: export_predictor(ck, art,
-                                                           device=DEVICE))
-            (call, meta), t_load = _sync_s(lambda: load_predictor(art))
+            export_predictor(ck, art, device=DEVICE)
+            call, meta = load_predictor(art)
             _, eager, _ = load_model_and_state(ck, DEVICE)
             fns = {"eager": make_predict_step(eager), "artifact": call}
-            fps, ys, counts = {"eager": [], "artifact": []}, {}, {}
+            ys, counts = {}, {}
             want = _want_counts(mc, predict_batches=EXPORT_FRAMES // 16 + 1)
             for name in ("eager", "artifact", "artifact", "eager"):
                 _zero_counts()
-                ys[name], f = predict_in_batches(fns[name], x, 16, DEVICE,
+                ys[name], _ = predict_in_batches(fns[name], x, 16, DEVICE,
                                                  verbose=False)
                 counts[name] = _counts()
                 if counts[name] != want:
                     fail(f"{tag}: {name} launches {counts[name]} != {want}")
-                fps[name].append(f)
-            x16 = torch.from_numpy(x[:16]).to(DEVICE)
-            host = {name: host_us(lambda: fns[name](x16), calls=50) / 1e3
-                    for name in ("eager", "artifact", "artifact", "eager")}
             x7 = torch.from_numpy(x[:7]).to(DEVICE)
             _zero_counts()
             y7 = call(x7)
@@ -2413,24 +1920,16 @@ def phase_export(seed: int, smi: str) -> dict:
             torch.equal(y7, e7) and y7.shape == (7, cfg.grid.num_outputs)
         print(f"[{tag}] {mc.backbone}-{mc.input_size} "
               f"{mc.compute_dtype}, selective_sigmoid "
-              f"{mc.selective_sigmoid}: export {t_export:.2f} s, load "
-              f"{t_load:.2f} s, batch {meta['input']['batch']}; "
-              f"{EXPORT_FRAMES} frames at b=16 and 7 at b=7, artifact vs "
-              f"eager bitwise {bitwise} (max_abs_err {err:.3e}); launches "
-              f"per artifact sweep {counts['artifact']} (warm-up "
-              f"included), b=7 {c7}")
-        print(f"[{tag}] frames/s at b=16, in turns: eager "
-              f"{[round(v, 1) for v in fps['eager']]}, artifact "
-              f"{[round(v, 1) for v in fps['artifact']]}; ms per b=16 "
-              f"batch over 50 calls with one sync (host-bound when above "
-              f"the device time): eager {host['eager']:.3f}, artifact "
-              f"{host['artifact']:.3f}  [{smi}]")
+              f"{mc.selective_sigmoid}: batch {meta['input']['batch']}; "
+              f"{EXPORT_FRAMES} frames at b=16, eager and artifact in "
+              f"turns, and 7 at b=7, artifact vs eager bitwise {bitwise} "
+              f"(max_abs_err {err:.3e}); launches per artifact sweep "
+              f"{counts['artifact']} (warm-up included), b=7 {c7}  [{smi}]")
         if meta["input"]["batch"] != "symbolic" or not bitwise:
             fail(f"{tag}: batch {meta['input']['batch']}, bitwise "
                  f"{bitwise} (max_abs_err {err})")
         # the launches counted in the artifact's last sweep
-        out[tag] = dict(export_s=t_export, fps=fps, counts=counts["artifact"],
-                        batch_ms=host)
+        out[tag] = dict(counts=counts["artifact"])
         del eager, fns, call
         torch.cuda.empty_cache()
     return out
@@ -2584,12 +2083,11 @@ def _editor_model(csv_path: str, tmp: str) -> str:
             f"inside, handles on the axes, saved and reloaded equal")
 
 
-def phase_prep(seed: int, smi: str) -> dict:
+def phase_prep(seed: int, smi: str):
     """gen-fake-espi -> an aggregated Zooniverse CSV -> parse-zooniverse ->
     gen-bboxes -> setup-data -a PREP_AUGS, each through its CLI `main`;
-    then augment -n AUG_N of AUG_FILES files on the card (files/s, the
-    warp's share), AUG_CPU_FILES of them on the CPU against it, and the
-    editor's data model."""
+    then augment -n AUG_N of AUG_FILES files on the card, AUG_CPU_FILES of
+    them on the CPU against it, and the editor's data model."""
     from PIL import Image
 
     from spnet_tpu_torch.cli import augment_preproc, gen_bboxes, \
@@ -2601,11 +2099,9 @@ def phase_prep(seed: int, smi: str) -> dict:
 
     with tempfile.TemporaryDirectory() as tmp:
         raw, parsed = os.path.join(tmp, "raw"), os.path.join(tmp, "parsed")
-        t0 = time.perf_counter()
         gen_fake_espi.main(["-d", raw, "-n", str(PREP_FRAMES), "--seed",
                             str(seed), "--device", DEVICE])
         src = os.path.join(raw, "Train")
-        gen_s = time.perf_counter() - t0
         want = _zooniverse_csv(src, os.path.join(tmp, "agg.csv"))
         n_rows = parse_zooniverse.main(["-i", os.path.join(tmp, "agg.csv"),
                                         "-p", src, "-o", parsed])
@@ -2633,7 +2129,7 @@ def phase_prep(seed: int, smi: str) -> dict:
         if got != (n_train * (1 + PREP_AUGS), n - n_train):
             fail(f"setup-data: Train/Val PNGs {got}")
         print(f"[prep] gen-fake-espi {PREP_FRAMES} native frames "
-              f"({gen_s:.2f} s) -> parse-zooniverse {n_rows} rows of {n} "
+              f"-> parse-zooniverse {n_rows} rows of {n} "
               f"frames (the swapped axes and the duplicate undone) -> "
               f"gen-bboxes {n_boxes} boxes -> setup-data -a {PREP_AUGS}: "
               f"Train {got[0]} PNGs ({n_train} originals, {PREP_AUGS} variants "
@@ -2646,8 +2142,8 @@ def phase_prep(seed: int, smi: str) -> dict:
             os.makedirs(d)
             for f in imgs[:k] + metas[:k]:
                 shutil.copy(f, d)
-        stats = augment_preproc.main(["-d", card, "-n", str(AUG_N),
-                                      "--device", DEVICE])
+        augment_preproc.main(["-d", card, "-n", str(AUG_N), "--device",
+                              DEVICE])
         augment_preproc.main(["-d", cpu, "-n", str(AUG_N), "--device",
                               "cpu"])
         if len(pngs(card)) != AUG_FILES * (1 + AUG_N):
@@ -2669,41 +2165,27 @@ def phase_prep(seed: int, smi: str) -> dict:
                 fail(f"augment: {f} rows {ra.shape} vs {rb.shape}")
             if ra.size:
                 worst_row = max(worst_row, float(np.abs(ra - rb).max()))
-        files_s = stats["files"] / stats["seconds"]
-        variants_s = stats["variants"] / stats["seconds"]
-        warp = stats["warp_seconds"] / stats["seconds"]
-        print(f"[prep] augment -n {AUG_N} of {AUG_FILES} files on the card: "
-              f"{stats['variants']} variants in {stats['seconds']:.3f} s, "
-              f"{files_s:.3f} files/s ({variants_s:.1f} variants/s); the "
-              f"warp (upload, warps, one host copy) {100 * warp:.2f} % of "
-              f"the command's time, the rest PNG "
-              f"and CSV writes on the host  [{smi}]")
-        print(f"[prep] augment, card vs CPU on {AUG_CPU_FILES} files "
+        print(f"[prep] augment -n {AUG_N} of {AUG_FILES} files on the card, "
+              f"card vs CPU on {AUG_CPU_FILES} files "
               f"({len(names)} PNGs): names identical; rows max |diff| "
               f"{worst_row:.3g} (tol {AUG_ROWS_ATOL}); pixels max |diff| "
               f"{worst_px:.0f} gray level(s) (tol {AUG_PIXEL_LEVELS}), "
-              f"{differ} pixel(s) apart")
+              f"{differ} pixel(s) apart  [{smi}]")
         if worst_row > AUG_ROWS_ATOL or worst_px > AUG_PIXEL_LEVELS:
             fail(f"augment: card vs CPU rows {worst_row}, pixels "
                  f"{worst_px}")
         print(f"[prep] ellipse-editor: no display on this host, its data "
               f"model only: {_editor_model(metas[0], tmp)}")
-    return dict(files_per_s=files_s, warp_share=warp, **stats)
 
 
 # ---------------------------------------------------------------------------
 # phase 16: data-parallel training
 # ---------------------------------------------------------------------------
 
-DP_TURN_FRAMES = 1024     # train frames of each timed run (8 steps an epoch)
+DP_TURN_FRAMES = 1024     # train frames of a run in turns (8 steps an epoch)
 DP_TURNS = ("group", "none", "none", "group")
 DP_CHILD_TIMEOUT = 900    # seconds a rank of phase 16(b) may take
 DP_PROBE_TIMEOUT = 180    # ... the NCCL probe's
-DP_PROFILE_STEPS = 5      # traced steps of each turn of `_dp_step_profile`
-# DDP collects runtime statistics, syncing the host on CUDA events, in its
-# first 10 iterations (and every 100th): `_dp_step_profile` times steps
-# 3-10 and 13-22 apart
-DDP_SAMPLED_ITERS = 10
 DP_F32_BATCH = 16
 DP_F32_RTOL = 1e-5        # 2 ranks vs 1 process, f32 loss and head gradient
 
@@ -2771,110 +2253,6 @@ def _dp_bitwise(cfg, train_ds, seed: int) -> list:
         fail(f"dp: 1-rank group losses {losses[True]} != {losses[False]}")
     torch.cuda.empty_cache()
     return losses[True]
-
-
-def _device_by_kernel(path: str) -> dict:
-    """From a torch.profiler chrome trace: device microseconds by kernel,
-    copy and set name."""
-    with open(path) as f:
-        events = json.load(f)["traceEvents"]
-    out = {}
-    for e in events:
-        if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") \
-                and "dur" in e:
-            out[e["name"]] = out.get(e["name"], 0.0) + e["dur"]
-    return out
-
-
-def _dp_step_profile(cfg, train_ds, tmp: str, smi: str) -> dict:
-    """Xception-331 bf16 train steps at b=128 (augmentation and dropout
-    on) in a 1-rank NCCL group (DDP) and without a group, in turns
-    DP_TURNS, each turn with its own model from one seed: after 2 warm-up
-    steps, steps 3-10 (inside DDP's sampled iterations) and steps 13-22
-    timed to the host value of their last loss, then DP_PROFILE_STEPS
-    steps under `utils.profiling.trace`.  From each trace, a step's device
-    time (all kernels, copies and sets), its NCCL kernels' and its device
-    copies' time, and the idle share; and the kernels by which the group's
-    traces exceed the others (DDP's bucket copies and the all-reduce)."""
-    from spnet_tpu_torch.models.spnet import build_model
-    from spnet_tpu_torch.train.state import create_train_state
-    from spnet_tpu_torch.train.steps import make_train_step
-    from spnet_tpu_torch.utils.profiling import trace
-
-    feed = [torch.from_numpy(a).to(DEVICE) for a in (train_ds.x,
-                                                     train_ds.y)]
-    idx = torch.arange(TRAIN_BATCH, device=DEVICE)
-    res = {"group": [], "none": []}
-    by_name = {"group": {}, "none": {}}
-    for turn, mode in enumerate(DP_TURNS):
-        if mode == "group":
-            _start_group()
-        try:
-            model = build_model(cfg.model, device=DEVICE,
-                                generator=torch.Generator().manual_seed(0))
-            state = create_train_state(model, lambda step: 1e-5)
-            step = make_train_step(model, cfg.loss_weights)
-            gen = torch.Generator(device=DEVICE).manual_seed(0)
-
-            def run(n):
-                for _ in range(n):
-                    _, met = step(state, *feed, idx, gen)
-                return float(met["loss"])
-
-            run(2)
-            _, early = _sync_s(lambda: run(DDP_SAMPLED_ITERS - 2))
-            run(2)
-            _, sec = _sync_s(lambda: run(10))
-            logdir = os.path.join(tmp, f"dp_profile_{turn}")
-            with trace(logdir):
-                run(DP_PROFILE_STEPS)
-            del state, model, step
-        finally:
-            if mode == "group":
-                torch.distributed.destroy_process_group()
-        torch.cuda.empty_cache()
-        (path,) = [os.path.join(logdir, f) for f in os.listdir(logdir)]
-        kern = _device_by_kernel(path)
-        for k, v in kern.items():
-            by_name[mode][k] = by_name[mode].get(k, 0.0) + v
-        per = 1.0 / DP_PROFILE_STEPS
-        res[mode].append(dict(
-            early_ms=1e3 * early / (DDP_SAMPLED_ITERS - 2),
-            step_ms=1e3 * sec / 10, device_us=per * sum(kern.values()),
-            nccl_us=per * sum(v for k, v in kern.items()
-                              if "nccl" in k.lower()),
-            copy_us=per * sum(v for k, v in kern.items()
-                              if k.startswith("Memcpy")),
-            idle=device_idle(path)["idle"]))
-    n = {m: DP_PROFILE_STEPS * DP_TURNS.count(m) for m in res}
-    extra = sorted(((by_name["group"][k] / n["group"]
-                     - by_name["none"].get(k, 0.0) / n["none"], k)
-                    for k in by_name["group"]), reverse=True)[:6]
-
-    def col(mode, key, fmt):
-        return "/".join(format(r[key], fmt) for r in res[mode])
-
-    print(f"[dp] the step with and without a 1-rank NCCL group, "
-          f"Xception-331 bf16 b={TRAIN_BATCH}, in turns {DP_TURNS}: ms a "
-          f"step, steps 3-{DDP_SAMPLED_ITERS} group "
-          f"{col('group', 'early_ms', '.2f')}, none "
-          f"{col('none', 'early_ms', '.2f')}; steps 13-22 group "
-          f"{col('group', 'step_ms', '.2f')}, none "
-          f"{col('none', 'step_ms', '.2f')}; {DP_PROFILE_STEPS} traced "
-          f"steps a turn, a step's device time group "
-          f"{col('group', 'device_us', '.1f')} us, none "
-          f"{col('none', 'device_us', '.1f')} us; NCCL kernels group "
-          f"{col('group', 'nccl_us', '.1f')} us; device copies group "
-          f"{col('group', 'copy_us', '.1f')} us, none "
-          f"{col('none', 'copy_us', '.1f')} us; idle share group "
-          f"{col('group', 'idle', '.4f')}, none {col('none', 'idle', '.4f')}"
-          f"  [{smi}]")
-    print("[dp] what the group adds a step (device us, group less none, "
-          "mean over the turns): " + "; ".join(
-              f"{k[:70]} {v:+.1f}" for v, k in extra))
-    if any(r["device_us"] <= 0 for m in res for r in res[m]):
-        fail("dp: a profiled turn shows no device time")
-    return dict(turns=res, extra=[(k, v) for v, k in extra])
 
 
 def _spawn_ranks(mode: str, world: int, tmp: str, seed: int,
@@ -3033,7 +2411,6 @@ def dp_child(mode: str, rank: int, world: int, port: str, tmp: str,
     loss, grad = _f32_dp_step(ddp, x16, y16, seed)
     np.savez(os.path.join(tmp, f"gloo_r{rank}.npz"),
              losses=np.array([h["train_loss"] for h in hist]),
-             img_per_sec=np.array([h["img_per_sec"] for h in hist]),
              val=np.array([h["val_comps"]["total"] for h in hist]),
              stats=stats, step=np.array(step), f32_loss=np.array(loss),
              resident=np.array(resident),
@@ -3078,10 +2455,7 @@ def _dp_two_ranks(seed: int, smi: str) -> dict:
           f"processes' start: losses {res[0]['losses'].tolist()} / "
           f"{res[1]['losses'].tolist()}, steps {int(res[0]['step'])}; "
           f"launches per rank {counts}; val (each rank's shard) "
-          f"{res[0]['val'].tolist()} / {res[1]['val'].tolist()}")
-    print(f"[dp] 2 gloo ranks sharing one card (two processes, host-staged "
-          f"all-reduces; not a multi-GPU rate): train images/s "
-          f"{res[0]['img_per_sec'].tolist()}  [{smi}]")
+          f"{res[0]['val'].tolist()} / {res[1]['val'].tolist()}  [{smi}]")
     union = int(res[0]["union_bytes"])
     resident = [r["resident"].tolist() for r in res]
     exchange = [r["exchange"].tolist() for r in res]
@@ -3124,14 +2498,14 @@ def _dp_two_ranks(seed: int, smi: str) -> dict:
         fail(f"dp: f32 step 2 ranks vs 1 process: loss {l_rel}, gradient "
              f"{g_rel}")
     return dict(counts=counts, refused=refused, loss_rel=l_rel,
-                grad_rel=g_rel, img_per_sec=res[0]["img_per_sec"].tolist(),
-                resident=resident, union_bytes=union, exchange=exchange)
+                grad_rel=g_rel, resident=resident, union_bytes=union,
+                exchange=exchange)
 
 
 def phase_dp(seed: int, smi: str) -> dict:
     """Phase 16: (a) a 1-rank NCCL group through `train_network` (2 epochs,
-    resumed to 3; launches), 2 steps bitwise against no group, and the
-    train rate with and without the group in turns; (b) two ranks on the
+    resumed to 3; launches), 2 steps bitwise against no group, and runs
+    with and without the group in turns (launches); (b) two ranks on the
     one card (`_dp_two_ranks`)."""
     import dataclasses
 
@@ -3161,30 +2535,20 @@ def phase_dp(seed: int, smi: str) -> dict:
     turn_train, turn_val = _seeded_split((DP_TURN_FRAMES, VAL_FRAMES),
                                          cfg.model.input_size, cfg.grid,
                                          seed + 1)
-    rates = {"group": [], "none": []}
     for mode in DP_TURNS:
         if mode == "group":
             _start_group()
         try:
             with tempfile.TemporaryDirectory() as tmp:
-                state, hist_t, _ = _train_run(cfg, turn_train, turn_val, tmp,
-                                              smi, f"dp turns {mode}")
+                state, _, _ = _train_run(cfg, turn_train, turn_val, tmp, smi,
+                                         f"dp turns {mode}")
                 del state
         finally:
             if mode == "group":
                 torch.distributed.destroy_process_group()
         torch.cuda.empty_cache()
-        rates[mode].append(hist_t[-1]["img_per_sec"])
-    print(f"[dp] train images/s at b={TRAIN_BATCH}, epoch 2 of "
-          f"{DP_TURN_FRAMES} frames, in turns {DP_TURNS}: 1-rank NCCL "
-          f"group (DDP, eager steps) {[round(v, 1) for v in rates['group']]}"
-          f", no group (the graphed epoch form) "
-          f"{[round(v, 1) for v in rates['none']]}  [{smi}]")
-    with tempfile.TemporaryDirectory() as tmp:
-        profile = _dp_step_profile(cfg, turn_train, tmp, smi)
     two = _dp_two_ranks(seed, smi)
-    return dict(counts=counts, bitwise=bitwise, rates=rates,
-                profile=profile, two=two)
+    return dict(counts=counts, bitwise=bitwise, two=two)
 
 
 BENCH_STEPS = 16          # steps an epoch of phase 17's `bench` (160 there)
@@ -3211,23 +2575,23 @@ def phase_bench(seed: int, smi: str) -> dict:
         _epoch_calls(2 * BENCH_STEPS) if form == "graph" else 2 * BENCH_STEPS
         for form in bench.TURNS))
     print(f"[bench] bench.main(steps_per_epoch={BENCH_STEPS}) (warm-up + "
-          f"timed epoch): {json.dumps(out)}; launches {counts}  [{smi}]")
+          f"timed epoch): keys {list(out)}; launches {counts}  [{smi}]")
     if tuple(out) != ("metric", "value", "unit", "vs_baseline") or not (
             np.isfinite(out["value"]) and out["value"] > 0):
         fail(f"bench: {out}")
     if counts != want:
         fail(f"bench: launches {counts} != {want}")
-    res = dict(train=out, train_counts=counts, infer={})
+    res = dict(train_counts=counts, infer={})
 
     model, x, mc = bench_infer.setup(INFER_BATCHES[0], INFER_FRAMES)
     predict = make_predict_step(model)
     for b in INFER_BATCHES:
         steps = INFER_FRAMES // b
         _zero_counts()
-        y1, fps1 = bench_infer.pipelined(predict, x, b)
+        y1, _ = bench_infer.pipelined(predict, x, b)
         c1 = _counts()
         _zero_counts()
-        y2, fps2 = bench_infer.captured_sweep(predict, x, b)
+        y2, _ = bench_infer.captured_sweep(predict, x, b)
         c2 = _counts()
         # pipelined: the warm-up batch and every batch; the sweep: its
         # eager warm-up batch and the graph's contents (captured once; the
@@ -3235,9 +2599,8 @@ def phase_bench(seed: int, smi: str) -> dict:
         w1 = _want_counts(mc, predict_batches=-(-INFER_FRAMES // b) + 1)
         w2 = _want_counts(mc, predict_batches=1 + steps)
         same = torch.equal(y1[: steps * b], y2)
-        r = bench_infer.result(b, fps1, fps2, x.device, mc)
         print(f"[bench] bench_infer b={b}, {INFER_FRAMES} frames: "
-              f"{json.dumps(r)}; outputs of the two modes bitwise equal: "
+              f"outputs of the two modes bitwise equal: "
               f"{same}; K1 launches pipelined {c1['sepconv_infer']}, sweep "
               f"{c2['sepconv_infer']} (warm-up batch + the graph's "
               f"{steps} x 34)  [{smi}]")
@@ -3245,7 +2608,7 @@ def phase_bench(seed: int, smi: str) -> dict:
             fail(f"bench_infer b={b}: launches {c1} / {c2} != {w1} / {w2}")
         if not (same and torch.isfinite(y1).all()):
             fail(f"bench_infer b={b}: the two modes' outputs differ")
-        res["infer"][b] = dict(result=r, pipelined=c1["sepconv_infer"],
+        res["infer"][b] = dict(pipelined=c1["sepconv_infer"],
                                sweep=c2["sepconv_infer"])
     del model, predict, x
     torch.cuda.empty_cache()
@@ -3323,17 +2686,17 @@ def phase_native(seed: int, smi: str) -> dict:
     """Phase 18: native resolution (`input_size=0`, uncut 512x384
     frames), Xception bf16 with f32 params: (a) K1 at its ten shapes;
     (b) the model served from a port checkpoint (NATIVE_SERVE_FRAMES at
-    b=16: frames/s, 34 K1 launches a batch) and held, float32 and bf16,
-    against its plain version; (c) `train_network` at b=128 on
-    NATIVE_TRAIN + NATIVE_VAL seeded native frames for 2 epochs: finite
-    losses, launches, the run's peak memory."""
+    b=16: 34 K1 launches a batch) and held, float32 and bf16, against its
+    plain version; (c) `train_network` at b=128 on NATIVE_TRAIN +
+    NATIVE_VAL seeded native frames for 2 epochs: finite losses,
+    launches."""
     from spnet_tpu_torch.config import ExperimentConfig, ModelConfig, \
         TrainConfig
 
     t0 = time.perf_counter()
     kern = _native_kernel(seed, smi)
     cfg = ExperimentConfig(model=ModelConfig(input_size=0))
-    model, x, _, _, fps, serve_counts = _serve(
+    model, x, _, _, serve_counts = _serve(
         cfg, seed, smi, "native", n_frames=NATIVE_SERVE_FRAMES)
     for dtype in ("float32", "bfloat16"):
         _kernels_vs_plain(cfg.model, model.state_dict(), x[:16], "native",
@@ -3346,22 +2709,14 @@ def phase_native(seed: int, smi: str) -> dict:
                                              seed=seed))
     train_ds, val_ds = _seeded_split((NATIVE_TRAIN, NATIVE_VAL), 0,
                                      cfg.grid, seed)
-    torch.cuda.reset_peak_memory_stats()
     with tempfile.TemporaryDirectory() as tmp:
-        state, hist, train_counts = _train_run(cfg, train_ds, val_ds, tmp,
-                                               smi, tag="native")
+        state, _, train_counts = _train_run(cfg, train_ds, val_ds, tmp, smi,
+                                            tag="native")
         del state
-    peak = torch.cuda.max_memory_allocated() / 2**30
     torch.cuda.empty_cache()
-    seconds = time.perf_counter() - t0
-    print(f"[native] train b={TRAIN_BATCH} at 384x512: peak "
-          f"max_memory_allocated {peak:.2f} GiB over the run (train steps, "
-          f"the b={VAL_BATCH} val sweeps, {NATIVE_TRAIN + NATIVE_VAL} "
-          f"resident frames); predict {fps:.1f} frames/s at b=16; phase 18 "
-          f"took {seconds:.1f} s  [{smi}]")
-    return dict(kern=kern, predict_fps=fps, serve_counts=serve_counts,
-                train_counts=train_counts, peak_gib=peak,
-                img_per_sec=hist[-1]["img_per_sec"], seconds=seconds)
+    print(f"[native] phase 18 took {time.perf_counter() - t0:.1f} s")
+    return dict(kern=kern, serve_counts=serve_counts,
+                train_counts=train_counts)
 
 
 VALIDATION_ARGV = ["2", "32", "1e-4", "1024", "bfloat16", "331", "Xception"]
@@ -3389,10 +2744,8 @@ def _tool(name: str, fn, argv, want: dict, smi: str,
         raise
     seconds = time.perf_counter() - t0
     counts = _counts()
-    mem = [line for line in buf.getvalue().splitlines()
-           if line.startswith("[memory]")]
     print(f"[{tag}] {name} {' '.join(argv)}: {seconds:.1f} s; "
-          f"launches {counts}; {' | '.join(mem)}  [{smi}]")
+          f"launches {counts}  [{smi}]")
     if counts != want:
         fail(f"{tag} {name}: launches {counts} != {want}")
     return out, counts, buf.getvalue()
@@ -3477,13 +2830,12 @@ def phase_validation(seed: int, smi: str) -> dict:
                     np.isfinite(out[r]["mAP"]) for r in ("plain", "tta")):
                 fail(f"eval_tta: {out}")
 
-            out, res["counts"]["movie_predict"], text = _tool(
+            out, res["counts"]["movie_predict"], _ = _tool(
                 "movie_predict", movie_predict.main,
                 [str(VALIDATION_MOVIE), str(MOVIE_BATCH)],
                 _want_counts(mc, predict_batches=2), smi)
-            fps = [l for l in text.splitlines() if "FPS = " in l]
-            print(f"[validation] MOVIE_RESULT {json.dumps(out)}; "
-                  f"{fps[-1].strip() if fps else ''}  [{smi}]")
+            print(f"[validation] movie_predict: {out['frames']} frames, "
+                  f"{out['overlays']} overlays  [{smi}]")
             if out["overlays"] != 8 or out["frames"] != VALIDATION_MOVIE:
                 fail(f"movie_predict: {out}")
         finally:
@@ -3503,8 +2855,6 @@ EPOCH_FRAMES = 256        # phase 20's resident frames
 EPOCH_BATCHES = (16, 128)
 EPOCH_STEPS, EPOCH_SPLIT = 8, 4  # steps of a pair run; unfreeze after 4
 EPOCH_FREEZE = 0.5        # freeze_fac of its first epoch
-EPOCH_TIMED = {16: 32, 32: 32, 128: 16}  # steps of a timed epoch, by batch
-EPOCH_TURNS = ("graph", "eager", "eager", "graph")
 # phase 20(b): the other backbones at the 25-epoch sweep's batch
 EPOCH_ZOO = ("DarkNet19", "InceptionResNetV2", "MobileNet", "NASNetMobile")
 EPOCH_ZOO_BATCH = 32
@@ -3544,8 +2894,7 @@ def _epoch_trainer(form: str, mc, data, seed: int):
     under onecycle(1e-4, 100)) and epoch(rows, generator seed) -> losses:
     the graphed epoch form (form 'graph') or the eager steps ('eager'), on
     `data` ((x_all, y_all) or, geo, (x_all, y_all, rows_all, mask_all)).
-    Returns (box with the 'state', epoch, the epoch form's capture
-    seconds)."""
+    Returns (box with the 'state', epoch)."""
     from spnet_tpu_torch.config import GridSpec, LossWeights
     from spnet_tpu_torch.models.spnet import build_model
     from spnet_tpu_torch.train.schedule import onecycle_schedule
@@ -3572,7 +2921,7 @@ def _epoch_trainer(form: str, mc, data, seed: int):
         return torch.stack([step(box["state"], *data, r, gen)[1]["loss"]
                             for r in rows])
 
-    return box, epoch, train_epoch.capture_seconds
+    return box, epoch
 
 
 def _epoch_pair(mc, b: int, data, seed: int, tag: str, smi: str) -> dict:
@@ -3582,10 +2931,7 @@ def _epoch_pair(mc, b: int, data, seed: int, tag: str, smi: str) -> dict:
     with `unfreeze` between; losses, parameters, BN statistics, Adam
     moments and counts must be bitwise equal.  The eager steps run twice
     (first, and after the graphed run), and the two runs must be bitwise
-    equal: the eager path's own determinism, which the pair relies on.
-    Then both train on in turns (EPOCH_TURNS, EPOCH_TIMED[b] steps an
-    epoch, after one untimed graphed epoch of that length, which captures
-    again for its longer buffers): images/s each way."""
+    equal: the eager path's own determinism, which the pair relies on."""
     from spnet_tpu_torch.train.state import unfreeze
 
     rng = np.random.default_rng(seed)
@@ -3593,29 +2939,15 @@ def _epoch_pair(mc, b: int, data, seed: int, tag: str, smi: str) -> dict:
     idx = torch.from_numpy(rng.integers(0, n, (EPOCH_STEPS, b))).to(DEVICE)
     runs = {}
     for form in ("eager2", "graph", "eager"):
-        box, epoch, captures = _epoch_trainer(form[:5], mc, data, seed)
-        torch.cuda.synchronize()
+        box, epoch = _epoch_trainer(form[:5], mc, data, seed)
         torch.cuda.empty_cache()
-        held0 = torch.cuda.memory_reserved() - torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-        base = torch.cuda.memory_allocated()  # the other run's state too
         _zero_counts()
-        t0 = time.perf_counter()
         first = epoch(idx[:EPOCH_SPLIT], seed * 1_000_003)
         box["state"] = unfreeze(box["state"], adam_variant="optax")
         losses = torch.cat([first, epoch(idx[EPOCH_SPLIT:],
                                          seed * 1_000_003 + 1)])
-        float(losses[-1])
-        seconds = time.perf_counter() - t0
-        peak = (torch.cuda.max_memory_allocated() - base) / 2**30
-        # what the cache cannot give back after the run: the private pool
-        # of the graph it captured
-        torch.cuda.empty_cache()
-        held = (torch.cuda.memory_reserved() - torch.cuda.memory_allocated()
-                - held0) / 2**30
-        runs[form] = dict(state=box["state"], epoch=epoch, losses=losses,
-                          counts=_counts(), seconds=seconds, peak_gib=peak,
-                          held_gib=held, captures=list(captures))
+        runs[form] = dict(state=box["state"], losses=losses,
+                          counts=_counts())
     e2 = runs.pop("eager2")
     bad = _states_equal(e2["state"], runs["eager"]["state"])
     same = torch.equal(e2["losses"], runs["eager"]["losses"])
@@ -3634,38 +2966,18 @@ def _epoch_pair(mc, b: int, data, seed: int, tag: str, smi: str) -> dict:
     print(f"[epoch] {tag} b={b}: {EPOCH_STEPS} steps, unfreeze after "
           f"{EPOCH_SPLIT}: graphed losses {g['losses'].tolist()}; eager "
           f"bitwise equal: losses {same}, every parameter, BN statistic, "
-          f"Adam moment and count {not bad} {bad[:5]}; captures "
-          f"{[round(c, 3) for c in g['captures']]} s; launches graphed "
+          f"Adam moment and count {not bad} {bad[:5]}; launches graphed "
           f"{g['counts']} (warm-ups + the graph's contents), eager "
-          f"{e['counts']}; peak "
-          f"allocated above the memory in use before "
-          f"the run, graphed {g['peak_gib']:.4f} / "
-          f"eager {e['peak_gib']:.4f} GiB; reserved and free after "
-          f"empty_cache, more than before the run (the graph's pool) "
-          f"{g['held_gib']:.4f} / {e['held_gib']:.4f} GiB  [{smi}]")
+          f"{e['counts']}  [{smi}]")
     if not same or bad or not torch.isfinite(g["losses"]).all():
         fail(f"epoch {tag} b={b}: graphed vs eager differ: losses {same}, "
              f"leaves {bad[:10]}")
     if g["counts"] != want_g or e["counts"] != want_e:
         fail(f"epoch {tag} b={b}: launches {g['counts']} / {e['counts']} "
              f"!= {want_g} / {want_e}")
-    steps = EPOCH_TIMED[b]
-    timed = torch.from_numpy(rng.integers(0, n, (steps, b))).to(DEVICE)
-    float(g["epoch"](timed, seed)[-1])  # the graph's longer buffers
-    rates = {"graph": [], "eager": []}
-    for k, form in enumerate(EPOCH_TURNS):
-        t0 = time.perf_counter()
-        float(runs[form]["epoch"](timed, seed + 1 + k)[-1])
-        rates[form].append(b * steps / (time.perf_counter() - t0))
-    print(f"[epoch] {tag} b={b}: train images/s, {steps} steps an epoch, "
-          f"in turns {EPOCH_TURNS}: graphed "
-          f"{[round(v, 2) for v in rates['graph']]}, eager "
-          f"{[round(v, 2) for v in rates['eager']]}  [{smi}]")
-    g_peak, e_peak = g["peak_gib"], e["peak_gib"]
     del runs, g, e
     torch.cuda.empty_cache()
-    return dict(counts=want_g, rates=rates, bitwise=True,
-                peak_gib=(g_peak, e_peak))
+    return dict(counts=want_g, bitwise=True)
 
 
 def phase_epoch(seed: int, smi: str) -> dict:
@@ -3755,9 +3067,8 @@ def phase_dataset_d(seed: int, smi: str) -> dict:
     with R the offline set's frames // 48, then `eval_blur_split` on a
     checkpoint of the offline arm's state.  Checks the inflated file
     names and count, that both arms took the resident feed and the epoch
-    form, each run's K1-K3 launches, finite results; prints both arms'
-    images/s and stage seconds.  `seed` is unused: the tools seed
-    themselves."""
+    form, each run's K1-K3 launches, finite results.  `seed` is unused:
+    the tools seed themselves."""
     from spnet_tpu_torch.config import ModelConfig
     from spnet_tpu_torch.io.checkpoint import save_train_state
     from spnet_tpu_torch.tools import dataset_d, eval_blur_split
@@ -3811,10 +3122,8 @@ def phase_dataset_d(seed: int, smi: str) -> dict:
             # counts are checked; the tool reuses both through the marker
             from spnet_tpu_torch.tools import dataset_d_prep
             _zero_counts()
-            t1 = time.perf_counter()
             dataset_d_prep.main([str(n_train), str(DATASET_D_VAL),
                                  str(DATASET_D_AUGS)])
-            prep_s = time.perf_counter() - t1
             if _counts() != _want_counts(mc):
                 fail(f"dataset_d_prep launched a kernel: {_counts()}")
             names = {f for f in os.listdir(f"{wd}/TrainAug")
@@ -3822,8 +3131,8 @@ def phase_dataset_d(seed: int, smi: str) -> dict:
             want_names = _inflated_names(f"{wd}/Train", DATASET_D_AUGS)
             written = n_train * (DATASET_D_AUGS + 1)
             print(f"[dataset_d] dataset_d_prep {n_train} {DATASET_D_VAL} "
-                  f"{DATASET_D_AUGS}: {prep_s:.1f} s; TrainAug holds {len(names)} PNG files of"
-                  f" {written} written ({written - len(names)} share a "
+                  f"{DATASET_D_AUGS}: TrainAug holds {len(names)} PNG files "
+                  f"of {written} written ({written - len(names)} share a "
                   f"name)  [{smi}]")
             if names != want_names:
                 fail(f"dataset_d: inflated names differ from augment's "
@@ -3854,7 +3163,7 @@ def phase_dataset_d(seed: int, smi: str) -> dict:
                              train_steps=_epoch_calls(
                                  epochs * rep * (n_train // b))),
                 smi, tag="dataset_d")
-            fly = _stages(text)
+            _stages(text)  # the arm's one DATASET_D_STAGES line
             if (seen["feeds"] != [True, True]
                     or len(seen["epoch_forms"]) != 2
                     or None in seen["epoch_forms"]):
@@ -3870,14 +3179,7 @@ def phase_dataset_d(seed: int, smi: str) -> dict:
                     epochs * frames, epochs * rep * n_train):
                 fail(f"dataset_d: images seen {r_off['imgs_seen']}, "
                      f"{r_fly['imgs_seen']}")
-            for arm, st in (("offline", off), ("onthefly", fly)):
-                secs = {k: v for k, v in st.items()
-                        if k.endswith("_s") and v is not None}
-                print(f"[dataset_d] {arm}: {st['frames']} frames, images/s "
-                      f"{st['img_per_sec']}; stage seconds {secs}  [{smi}]")
-            res.update(offline=r_off, onthefly=r_fly,
-                       img_per_sec={"offline": off["img_per_sec"],
-                                    "onthefly": fly["img_per_sec"]})
+            res.update(offline=r_off, onthefly=r_fly)
 
             state, cfg = seen["states"][0]
             save_train_state("ck", state, cfg)
@@ -4533,7 +3835,7 @@ def main(argv=None):
     heads = phase_heads(args.seed, smi)
     zoo = phase_zoo(args.seed, smi)
     tta = phase_tta(args.seed, smi)
-    syn = phase_synth(args.seed, smi, train["img_per_sec"])
+    syn = phase_synth(args.seed, smi)
     t1 = time.perf_counter()
     feeds = phase_feeds(args.seed, smi)
     remat = phase_remat(args.seed, smi)
@@ -4541,7 +3843,7 @@ def main(argv=None):
     pre = phase_pretrained(args.seed, smi)
     print(f"[done] phases 11-14 took {time.perf_counter() - t1:.1f} s")
     t2 = time.perf_counter()
-    prep = phase_prep(args.seed, smi)
+    phase_prep(args.seed, smi)
     dp = phase_dp(args.seed, smi)
     print(f"[done] phases 15-16 took {time.perf_counter() - t2:.1f} s")
     bench = phase_bench(args.seed, smi)
@@ -4553,21 +3855,8 @@ def main(argv=None):
     profile = phase_profile(args.seed, smi)
     bnk = phase_batchnorm(args.seed, smi)
     adam = phase_adam(args.seed, smi)
-    print(f"[done] {time.perf_counter() - t0:.1f} s after the device phase; "
-          f"train {train['img_per_sec']:.1f} images/s at b={TRAIN_BATCH}; "
-          f"zoo train images/s "
-          f"{ {b: round(r['img_per_sec'], 1) for b, r in zoo.items()} }; "
-          f"TTA {tta['predict_fps']:.1f} frames/s; synthetic feed "
-          f"{syn['frames_per_s'][1]:.1f} frames/s, geo train "
-          f"{syn['img_per_sec'][1]:.1f} images/s; augment "
-          f"{prep['files_per_s']:.3f} files/s; 1-rank group / no group "
-          f"train images/s {[round(v, 1) for v in dp['rates']['group']]} / "
-          f"{[round(v, 1) for v in dp['rates']['none']]}; bench "
-          f"{bench['train']['value']} images/s, bench_infer "
-          f"{ {b: r['result']['value'] for b, r in bench['infer'].items()} }"
-          f" frames/s; native predict {native['predict_fps']:.1f} frames/s, "
-          f"train {native['img_per_sec']:.1f} images/s, peak "
-          f"{native['peak_gib']:.2f} GiB  [{smi}]")
+    print(f"[done] {time.perf_counter() - t0:.1f} s after the device phase"
+          f"  [{smi}]")
 
     def bench_launches(name):
         # phase 17: bench.main's run, and bench_infer's modes per batch
@@ -4651,8 +3940,8 @@ def main(argv=None):
         # run, and the CLI trace's launches of the kernel
         "synth_launches": syn["train_counts"]["sepconv_infer"],
         "cli_launches": syn["cli"]["counts"]["sepconv_infer"],
-        "cli_trace_launches": syn["cli"]["ours"].get("wgmma_kernel", 0)
-        + syn["cli"]["ours"].get("simple_kernel", 0),
+        "cli_trace_launches": syn["cli"]["traced"]["wgmma_kernel"]
+        + syn["cli"]["traced"]["simple_kernel"],
         # phases 11 and 13: each feed's 2-epoch run (its val sweeps), and
         # one sweep of the exported artifact (EXPORT_FRAMES at b=16 and a
         # warm-up batch; the 'ss' head's the same)
@@ -4693,7 +3982,7 @@ def main(argv=None):
               zoo_launches={b: r["train_counts"]["spnet_loss_fwd"]
                             for b, r in zoo.items()},
               geo_launches=syn["train_counts"]["spnet_loss_fwd"],
-              cli_trace_launches=syn["cli"]["ours"].get("loss_kernel", 0),
+              cli_trace_launches=syn["cli"]["traced"]["loss_kernel"],
               dp_launches=dp_launches("spnet_loss_fwd"),
               bench_launches=bench_launches("spnet_loss_fwd"),
               native_launches=native_launches("spnet_loss_fwd"),
@@ -4715,8 +4004,7 @@ def main(argv=None):
               zoo_launches={b: r["train_counts"]["spnet_loss_bwd"]
                             for b, r in zoo.items()},
               geo_launches=syn["train_counts"]["spnet_loss_bwd"],
-              cli_trace_launches=syn["cli"]["ours"].get(
-                  "grad_scale_kernel", 0),
+              cli_trace_launches=syn["cli"]["traced"]["grad_scale_kernel"],
               dp_launches=dp_launches("spnet_loss_bwd"),
               bench_launches=bench_launches("spnet_loss_bwd"),
               native_launches=native_launches("spnet_loss_bwd"),

@@ -36,9 +36,8 @@ from spnet_tpu_torch.data.dataset import synthetic_dataset
 from spnet_tpu_torch.io.checkpoint import save_checkpoint
 from spnet_tpu_torch.models.spnet import build_model
 import spnet_tpu_torch.train.loop as t_loop
-from spnet_tpu_torch.tools import capture_memory, dataset_a, \
-    eval_breakdown, eval_tta, movie_predict, runtime, sanity_train, \
-    synth_cache
+from spnet_tpu_torch.tools import dataset_a, eval_breakdown, eval_tta, \
+    movie_predict, runtime, sanity_train, synth_cache
 from test_torch_backbones import fill
 from test_torch_tta import _noisy_grids
 
@@ -478,12 +477,10 @@ def test_sanity_train_runs_small(monkeypatch, tmp_path):
 
 @pytest.mark.parametrize("tool,argv", [
     (dataset_a, []), (sanity_train, []), (eval_breakdown, ["ck"]),
-    (eval_tta, ["ck"]), (movie_predict, []),
-    (capture_memory, ["--sweeps", "1"])])
+    (eval_tta, ["ck"]), (movie_predict, [])])
 def test_tools_need_a_card_unless_asked(tool, argv, monkeypatch):
     """Without --device or SPNET_DEVICE each tool asks for the card, and
-    on a host without one it raises before any work (`capture_memory`
-    measures the card's memory and has no CPU mode)."""
+    on a host without one it raises before any work."""
     if torch.cuda.is_available():
         pytest.skip("this host has CUDA")
     monkeypatch.delenv("SPNET_DEVICE", raising=False)
