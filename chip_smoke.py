@@ -124,11 +124,13 @@ more lines each; any failed check raises and the run exits non-zero:
                printed; the loss kernel once a replay in the epoch form's
                trace, the class sums add up, launches;
   24. batchnorm - the train-mode BatchNorm kernels at each BatchNorm call
-               of Xception-331's b=16 train step and four more shapes,
-               bf16, against the plain composition (output bitwise the
-               twin's arithmetic, gaps within tolerance, six launches), with
-               the device times of the kernels, the plain composition and
-               `F.batch_norm` from CUDA graphs, and the bytes' bound;
+               of Xception-331's b=16 and Inception-ResNet-v2-331's b=32
+               train steps and four more shapes, bf16, against the plain
+               composition (output bitwise the twin's arithmetic, gaps
+               within tolerance, the plan's launches: 2 on chip, 6 else),
+               with the device times of the plan's path, the three-launch
+               path, the plain composition and `F.batch_norm` from CUDA
+               graphs, and the bytes' bound;
   25. adam   - the multi-tensor Adam kernel on Xception-331's and
                InceptionResNetV2-331's trained leaves: optax and Keras
                updates bitwise the `_foreach` twin's, one launch an update;
@@ -136,18 +138,19 @@ more lines each; any failed check raises and the run exits non-zero:
                `torch.optim.Adam(fused=True, capturable=True)`, and the
                bound of 28 bytes a leaf element.
 
-Every model path runs with all seven launch counts (K1-K4's, the
-BatchNorm kernels', the Adam kernel's, and the loss kernel's count of 'ss'
-launches) set to 0 just before it and checks them all just after
-(`_want_counts`).  The line before the last is the kernels' JSON record:
-for each kernel its time, bound, plain time and library time (for K2-K4
-`ms` is the graph-timed device time at 128 x 576, beside `call_ms`,
-`host_us` and `floor_ms`; K1 adds `graph_ms` and the native b=16 batch's
-`native_ms`, `native_plain_ms`, `native_bound_ms` and
-`native_library_ms`; `batchnorm_train` phase 24's step sums; `adam_apply`
-phase 25's Xception update, IRv2's beside it), and the launches counted on
-every path (`*_launches`; `cli_trace_launches`, the launches in the CLI's
-phase-10 trace).  The last line is `{"ok": true, "device": {...}}`.  Exits
+Every model path runs with all eight launch counts (K1-K4's, the
+BatchNorm kernels', the Adam kernel's, the loss kernel's count of 'ss'
+launches and the BatchNorm directions run on chip) set to 0 just before
+it and checks them all just after (`_want_counts`).  The line before the
+last is the kernels' JSON record: for each kernel its time, bound, plain
+time and library time (for K2-K4 `ms` is the graph-timed device time at
+128 x 576, beside `call_ms`, `host_us` and `floor_ms`; K1 adds `graph_ms`
+and the native b=16 batch's `native_ms`, `native_plain_ms`,
+`native_bound_ms` and `native_library_ms`; `batchnorm_train` phase 24's
+Xception step sums, IRv2's beside them; `adam_apply` phase 25's Xception
+update, IRv2's beside it), and the launches counted on every path
+(`*_launches`; `cli_trace_launches`, the launches in the CLI's phase-10
+trace).  The last line is `{"ok": true, "device": {...}}`.  Exits
 non-zero without a result when no CUDA device is available.  Needs torch
 and numpy, no jax; phase 10 writes and reads PNG files with PIL.
 """
@@ -155,6 +158,7 @@ and numpy, no jax; phase 10 writes and reads PNG files with PIL.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import functools
 import json
 import os
@@ -327,8 +331,16 @@ def phase_build():
 
     from spnet_tpu_torch.ops import _build
 
+    from spnet_tpu_torch.ops.batchnorm import H100, _card
+
     path, seconds = _build.build()
     _build.load_library()
+    # the card the BatchNorm plan was set on must report what the CPU tests
+    # of the plan take
+    card = _card(0)
+    print(f"[build] BatchNorm on-chip slab bytes a block, SMs: {card}")
+    if "H100" in torch.cuda.get_device_name(0) and card != H100:
+        fail(f"an H100 reports {card} for the BatchNorm plan, not {H100}")
     print(f"[build] {os.path.relpath(path)}: nvcc {seconds:.2f} s"
           + (" (cached library of the same sources)" if seconds == 0 else ""))
     # ptxas -v of K1's wgmma kernels: registers, spills (per <NC, TN>)
@@ -582,73 +594,124 @@ def _wrappers() -> dict:
 
 
 SS_COUNT = "spnet_loss_fwd[ss]"  # the loss kernel's launches with K4 in it
+BN_ONCHIP = "batchnorm_train[onchip]"  # BatchNorm directions in one launch
 
 
 def _zero_counts():
     for f in _wrappers().values():
         f.launches = 0
     _wrappers()["spnet_loss_fwd"].ss_launches = 0
+    _wrappers()["batchnorm_train"].onchip = 0
 
 
 def _counts() -> dict:
     counts = {name: f.launches for name, f in _wrappers().items()}
     counts[SS_COUNT] = _wrappers()["spnet_loss_fwd"].ss_launches
+    counts[BN_ONCHIP] = _wrappers()["batchnorm_train"].onchip
     return counts
 
 
 @functools.lru_cache(maxsize=None)
-def _bn_layers_of(backbone: str) -> tuple[int, int]:
-    """(BatchNorm layers of SPNet-`backbone`, those of them inside the
-    backbone): each runs once in a train-mode forward."""
-    from spnet_tpu_torch.models.layers import BatchNorm
-    from spnet_tpu_torch.models.spnet import BACKBONES, Stem
+def _bn_calls(model_cfg) -> tuple:
+    """The train-mode BatchNorm calls of one forward of a model of
+    `model_cfg` at batch 1, in order: (rows, channels, dtype, inside the
+    backbone), from forward pre-hooks on a forward on the meta
+    device (its dropouts in eval mode: they need a generator there; the
+    'ss' head's kernel left out: it has no meta route)."""
+    from spnet_tpu_torch.config import ORIG_IMG_HEIGHT, ORIG_IMG_WIDTH, \
+        GridSpec
+    from spnet_tpu_torch.models.layers import BatchNorm, Dropout
+    from spnet_tpu_torch.models.spnet import build_model
 
-    def count(module):
-        return sum(isinstance(m, BatchNorm) for m in module.modules())
+    model = build_model(model_cfg, num_outputs=GridSpec().num_outputs,
+                        device="meta").train()
+    for m in model.modules():
+        if isinstance(m, Dropout):
+            m.eval()
+    inner = set(map(id, model._backbone_bns))
+    calls = []
 
-    inner = count(BACKBONES[backbone](False, (165, 165)))
-    return count(Stem()) + inner, inner
+    def record(m, args):
+        x = args[0]
+        calls.append((x.numel() // x.shape[-1], x.shape[-1], x.dtype,
+                      id(m) in inner))
+
+    hooks = [m.register_forward_pre_hook(record) for m in model.modules()
+             if isinstance(m, BatchNorm)]
+    size = model_cfg.input_size
+    h, w = (size, size) if size else (ORIG_IMG_HEIGHT, ORIG_IMG_WIDTH)
+    with torch.no_grad():
+        model(torch.zeros(1, h, w, 1, device="meta"), selective_sigmoid=False)
+    for hook in hooks:
+        hook.remove()
+    return tuple(calls)
 
 
-def _bn_launches(model_cfg, steps: int, backward: bool = True,
-                 ranks: int = 1, remat: bool | None = None) -> int:
-    """The BatchNorm kernels' launches in `steps` train steps of a model of
-    `model_cfg`: a layer's forward launches 3 (stats, finalize, normalize)
-    and its backward 3 (sums, finalize, dx), 4 each inside a group of
-    ranks > 1 (the finalize before the all-reduce); with remat (default
+def _bn_launches(model_cfg, steps: int, batch: int, backward: bool = True,
+                 ranks: int = 1, remat: bool | None = None) -> tuple:
+    """(launches, on-chip directions) of the BatchNorm kernels in `steps`
+    train steps of a model of `model_cfg` at `batch` rows (global, split
+    over `ranks`), each layer by its plan on this card (`ops/batchnorm.py::
+    layer_plan`, the activations' pointers aligned; at the train cells'
+    shapes on an H100 the layers on chip must be BN_ONCHIP_CALLS's count):
+    a direction on chip launches 1;
+    else a layer's forward launches 3 (stats, finalize, normalize) and its
+    backward 3 (sums, finalize, dx), 4 each inside a group of ranks > 1
+    (the finalize before the all-reduce).  With remat (default
     `model_cfg.remat`) the backward runs the backbone's layers forward
     once more.  backward=False counts the forwards alone: a gradient with
     respect to the head alone runs none of the layers' backward."""
+    from spnet_tpu_torch.ops.batchnorm import H100, _card, layer_plan
+
     if not steps:
-        return 0
-    n, inner = _bn_layers_of(model_cfg.backbone)
+        return 0, 0
     remat = model_cfg.remat if remat is None else remat
-    way = 4 if ranks > 1 else 3
-    return steps * way * (n + backward * (n + remat * inner))
+    launches = onchip = layers = 0
+    calls = _bn_calls(model_cfg)
+    for rows, c, dtype, inner in calls:
+        x = torch.empty(rows * batch // ranks, c, dtype=dtype, device="meta")
+        plan = layer_plan(x, world=ranks, card=_card(0))
+        dirs = 1 + backward * (1 + (remat and inner))
+        launches += dirs * (1 if plan else 4 if ranks > 1 else 3)
+        onchip += dirs * (plan is not None)
+        layers += plan is not None
+    pin = BN_ONCHIP_CALLS.get((model_cfg.backbone, batch))
+    if pin is not None and ranks == 1 and _card(0) == H100 and \
+            model_cfg.input_size == 331 and \
+            {dtype for _, _, dtype, _ in calls} == {torch.bfloat16} and \
+            layers != pin:
+        fail(f"{model_cfg.backbone}-331 b={batch}: {layers} BatchNorm "
+             f"layers on chip, not the census's {pin}")
+    return steps * launches, steps * onchip
 
 
-def _want_counts(model_cfg, predict_batches=0, train_steps=0,
+def _want_counts(model_cfg, predict_batches=0, train_steps=0, batch=0,
                  bn_backward=True, ranks=1, updates=None) -> dict:
     """Launches of each kernel for `predict_batches` eval-mode batches and
-    `train_steps` train steps of a model of `model_cfg` (on each of
-    `ranks`): K1 carries Xception's 34 separable convs in eval mode only,
-    K2/K3 the train loss, K4 the 'ss' head in eval mode; in a train step
-    the loss kernel's 'ss' variant carries K4 (forward and backward) in
-    its own pass; the BatchNorm kernels run in train mode only
-    (`_bn_launches`, with its `backward`); the Adam kernel once an
-    optimiser update, `updates` of them (default: one a train step;
-    every model's live leaves fit one launch)."""
+    `train_steps` train steps at `batch` rows of a model of `model_cfg`
+    (on each of `ranks`): K1 carries Xception's 34 separable convs in eval
+    mode only, K2/K3 the train loss, K4 the 'ss' head in eval mode; in a
+    train step the loss kernel's 'ss' variant carries K4 (forward and
+    backward) in its own pass; the BatchNorm kernels run in train mode
+    only (`_bn_launches`, with its `backward`; BN_ONCHIP counts the
+    directions on chip); the Adam kernel once an optimiser update,
+    `updates` of them (default: one a train step; every model's live
+    leaves fit one launch)."""
+    if train_steps and not batch:
+        raise ValueError("train steps need their batch")
     sep = SEPCONVS_PER_BATCH if model_cfg.backbone == "Xception" else 0
     ss = int(model_cfg.selective_sigmoid)
+    bn, onchip = _bn_launches(model_cfg, train_steps, batch, bn_backward,
+                              ranks)
     return {"sepconv_infer": sep * predict_batches,
             "spnet_loss_fwd": train_steps,
             "spnet_loss_bwd": train_steps,
             "selective_sigmoid_fwd": ss * predict_batches,
             "selective_sigmoid_bwd": 0,
-            "batchnorm_train": _bn_launches(model_cfg, train_steps,
-                                            bn_backward, ranks),
+            "batchnorm_train": bn,
             "adam_apply": train_steps if updates is None else updates,
-            SS_COUNT: ss * train_steps}
+            SS_COUNT: ss * train_steps,
+            BN_ONCHIP: onchip}
 
 
 def _serve(cfg, seed: int, smi: str, tag: str, n_frames: int = 64,
@@ -1031,7 +1094,7 @@ def _train_run(cfg, train_ds, val_ds, tmp, smi, tag="train", **feed):
         not mesh.active() and not cfg.model.remat
     want = _want_counts(cfg.model, predict_batches=(val_batches + 1) * epochs,
                         train_steps=_epoch_calls(steps) if epoch_form
-                        else steps)
+                        else steps, batch=tc.batch_size)
     print(f"[{tag}] epochs {start + 1}..{tc.epochs}: {seconds:.1f} s; "
           f"{steps} steps ({'the epoch form' if epoch_form else 'eager'}), "
           f"{val_batches} val batch(es) + 1 warm-up per epoch; launches "
@@ -1176,6 +1239,7 @@ def phase_train(seed: int, smi: str) -> dict:
     return dict(fwd_launches=counts["spnet_loss_fwd"],
                 bwd_launches=counts["spnet_loss_bwd"],
                 bn_launches=counts["batchnorm_train"],
+                bn_onchip=counts[BN_ONCHIP],
                 adam_launches=counts["adam_apply"])
 
 
@@ -1269,14 +1333,16 @@ def phase_heads(seed: int, smi: str) -> dict:
                 counts = _f32_step_agreement(f32, x16, y16, seed, tag,
                                              swap="model")
                 if counts != _want_counts(f32, train_steps=1,
-                                          bn_backward=False, updates=0):
+                                          batch=len(x16), bn_backward=False,
+                                          updates=0):
                     fail(f"{tag}: f32 step launches {counts}")
             # fused=False: K4's own forward and backward on the model
             counts = _f32_step_agreement(f32, x16, y16, seed, tag,
                                          swap="model", fused=False)
+            bn, onchip = _bn_launches(f32, 1, len(x16), False)
             want = dict(_want_counts(f32), selective_sigmoid_fwd=1,
-                        selective_sigmoid_bwd=1,
-                        batchnorm_train=_bn_launches(f32, 1, False))
+                        selective_sigmoid_bwd=1, batchnorm_train=bn,
+                        **{BN_ONCHIP: onchip})
             if counts != want:
                 fail(f"{tag}: f32 step with fused=False, launches {counts} "
                      f"!= {want}")
@@ -1350,10 +1416,10 @@ def phase_zoo(seed: int, smi: str) -> dict:
         torch.cuda.empty_cache()
         x16 = torch.from_numpy(train_ds.x[:16]).to(DEVICE)
         y16 = torch.from_numpy(train_ds.y[:16]).to(DEVICE)
-        step_counts = _f32_step_agreement(
-            dataclasses.replace(cfg.model, compute_dtype="float32"), x16,
-            y16, seed, tag, swap="loss")
-        if step_counts != _want_counts(cfg.model, train_steps=1,
+        f32 = dataclasses.replace(cfg.model, compute_dtype="float32")
+        step_counts = _f32_step_agreement(f32, x16, y16, seed, tag,
+                                          swap="loss")
+        if step_counts != _want_counts(f32, train_steps=1, batch=len(x16),
                                        bn_backward=False, updates=0):
             fail(f"{tag}: f32 step launches {step_counts}")
         del x16, y16
@@ -1542,7 +1608,8 @@ def _cli_gen_and_profile(tmp: str, smi: str) -> dict:
         v = n_val // PROFILE_BATCH * PROFILE_BATCH  # build_dataset's cut
         val_batches = -(-v // max(PROFILE_BATCH, min(VAL_BATCH, v)))
         want = _want_counts(ModelConfig(), predict_batches=val_batches + 1,
-                            train_steps=_epoch_calls(steps))
+                            train_steps=_epoch_calls(steps),
+                            batch=PROFILE_BATCH)
         events = glob.glob(os.path.join(log_dir, "tb", "events.*"))
         print(f"[synth] train --geo_augment --epoch_repeats {GEO_REPEATS} "
               f"--use_tb --profile, 1 epoch at b={PROFILE_BATCH}: launches "
@@ -1810,10 +1877,12 @@ def phase_remat(seed: int, smi: str) -> dict:
     for remat in (False, True, True, False):
         run(remat, REMAT_STEPS)
     counts = _counts()
-    want = dict(_want_counts(cfg.model, train_steps=4 * REMAT_STEPS),
-                batchnorm_train=_bn_launches(cfg.model, 2 * REMAT_STEPS,
-                                             remat=False)
-                + _bn_launches(cfg.model, 2 * REMAT_STEPS, remat=True))
+    bn = [_bn_launches(cfg.model, 2 * REMAT_STEPS, TRAIN_BATCH, remat=r)
+          for r in (False, True)]
+    want = dict(_want_counts(cfg.model, train_steps=4 * REMAT_STEPS,
+                             batch=TRAIN_BATCH),
+                batchnorm_train=bn[0][0] + bn[1][0],
+                **{BN_ONCHIP: bn[0][1] + bn[1][1]})
     print(f"[remat] b={TRAIN_BATCH}, {REMAT_STEPS} steps a run, runs in "
           f"turns off/on/on/off: launches {counts}  [{smi}]")
     if counts != want:
@@ -2448,7 +2517,7 @@ def _dp_two_ranks(seed: int, smi: str) -> dict:
     steps = 2 * (TRAIN_FRAMES // TRAIN_BATCH)
     val_batches = 2 * 2  # a val shard of VAL_FRAMES / 2 in one batch + warm-up
     want = _want_counts(ModelConfig(), predict_batches=val_batches,
-                        train_steps=steps, ranks=2)
+                        train_steps=steps, batch=TRAIN_BATCH, ranks=2)
     print(f"[dp] 2 gloo ranks on one card, b={TRAIN_BATCH} global "
           f"({TRAIN_BATCH // 2} a rank), 2 epochs of "
           f"{TRAIN_FRAMES // TRAIN_BATCH} steps, {seconds:.1f} s with the "
@@ -2552,6 +2621,7 @@ def phase_dp(seed: int, smi: str) -> dict:
 
 
 BENCH_STEPS = 16          # steps an epoch of phase 17's `bench` (160 there)
+BENCH_BATCH = 128         # phase 17's `bench` batch (its default)
 INFER_FRAMES = 4096       # bench_infer's frames
 INFER_BATCHES = (INFER_BATCH, 16)  # and the reference's logged FPS batch
 
@@ -2568,13 +2638,14 @@ def phase_bench(seed: int, smi: str) -> dict:
 
     t0 = time.perf_counter()
     _zero_counts()
-    out = bench.main(steps_per_epoch=BENCH_STEPS)
+    out = bench.main(batch_size=BENCH_BATCH, steps_per_epoch=BENCH_STEPS)
     counts = _counts()
     # the graphed turns' warm-up and capture, the eager turns' every step
     want = _want_counts(ModelConfig(), train_steps=sum(
         _epoch_calls(2 * BENCH_STEPS) if form == "graph" else 2 * BENCH_STEPS
-        for form in bench.TURNS))
-    print(f"[bench] bench.main(steps_per_epoch={BENCH_STEPS}) (warm-up + "
+        for form in bench.TURNS), batch=BENCH_BATCH)
+    print(f"[bench] bench.main(batch_size={BENCH_BATCH}, steps_per_epoch="
+          f"{BENCH_STEPS}) (warm-up + "
           f"timed epoch): keys {list(out)}; launches {counts}  [{smi}]")
     if tuple(out) != ("metric", "value", "unit", "vs_baseline") or not (
             np.isfinite(out["value"]) and out["value"] > 0):
@@ -2787,7 +2858,7 @@ def phase_validation(seed: int, smi: str) -> dict:
                 _want_counts(mc, predict_batches=(val_batches + 1)
                              * epochs + val_batches + 1,
                              train_steps=_epoch_calls(
-                                 epochs * (n_train // b))), smi)
+                                 epochs * (n_train // b)), batch=b), smi)
             with open("logs/dataset_a/metrics.jsonl") as f:
                 losses = [json.loads(line)["train"] for line in f]
             line = [l for l in text.splitlines()
@@ -2961,8 +3032,9 @@ def _epoch_pair(mc, b: int, data, seed: int, tag: str, smi: str) -> dict:
     g, e = runs["graph"], runs["eager"]
     bad = _states_equal(g["state"], e["state"])
     same = torch.equal(g["losses"], e["losses"])
-    want_g = _want_counts(mc, train_steps=2 * _epoch_calls(EPOCH_SPLIT))
-    want_e = _want_counts(mc, train_steps=EPOCH_STEPS)
+    want_g = _want_counts(mc, train_steps=2 * _epoch_calls(EPOCH_SPLIT),
+                          batch=b)
+    want_e = _want_counts(mc, train_steps=EPOCH_STEPS, batch=b)
     print(f"[epoch] {tag} b={b}: {EPOCH_STEPS} steps, unfreeze after "
           f"{EPOCH_SPLIT}: graphed losses {g['losses'].tolist()}; eager "
           f"bitwise equal: losses {same}, every parameter, BN statistic, "
@@ -3144,7 +3216,8 @@ def phase_dataset_d(seed: int, smi: str) -> dict:
                                               "offline"],
                 _want_counts(mc, predict_batches=(val_batches + 1)
                              * epochs + val_batches + 1,
-                             train_steps=_epoch_calls(epochs * steps)),
+                             train_steps=_epoch_calls(epochs * steps),
+                             batch=b),
                 smi, tag="dataset_d")
             off = _stages(text)
             if "(reusing completed inflation:" not in text:
@@ -3161,7 +3234,7 @@ def phase_dataset_d(seed: int, smi: str) -> dict:
                 _want_counts(mc, predict_batches=(val_batches + 1)
                              * epochs + val_batches + 1,
                              train_steps=_epoch_calls(
-                                 epochs * rep * (n_train // b))),
+                                 epochs * rep * (n_train // b)), batch=b),
                 smi, tag="dataset_d")
             _stages(text)  # the arm's one DATASET_D_STAGES line
             if (seen["feeds"] != [True, True]
@@ -3345,7 +3418,7 @@ def phase_refgen(seed: int, smi: str) -> dict:
                 _want_counts(mc, predict_batches=(val_batches + 1)
                              * epochs + val_batches + 1,
                              train_steps=_epoch_calls(
-                                 epochs * (n_train // b))), smi,
+                                 epochs * (n_train // b)), batch=b), smi,
                 tag="refgen")
             if seen["feeds"] != [True] or len(seen["epoch_forms"]) != 1 \
                     or None in seen["epoch_forms"]:
@@ -3438,8 +3511,8 @@ def phase_profile(seed: int, smi: str) -> dict:
                 "profile_step", lambda argv: profile_step.main(
                     argv, logdir=tmp),
                 [str(b), "--form", form, "--steps", str(PROFILE_STEPS)],
-                _want_counts(ModelConfig(), train_steps=steps), smi,
-                tag="profile")
+                _want_counts(ModelConfig(), train_steps=steps, batch=b),
+                smi, tag="profile")
             print("\n".join(line for line in text.splitlines()
                             if not line.startswith("PROFILE_STEP_RESULT")))
             total = out["device_us_per_step"]
@@ -3468,7 +3541,10 @@ def phase_profile(seed: int, smi: str) -> dict:
     return res
 
 
-BN_BATCH = 16  # the train cell's batch
+BN_BATCHES = {"Xception": 16, "InceptionResNetV2": 32}  # the train cells'
+# BatchNorm layers a step on chip at the train cells' shapes (bf16, 331 x
+# 331, BN_BATCHES) on an H100: tests/test_torch_batchnorm.py's census
+BN_ONCHIP_CALLS = {("Xception", 16): 34, ("InceptionResNetV2", 32): 200}
 # (shape, activation) timed besides the model's own layers: a map larger
 # than the L2, a middle-flow and an exit-flow map of a larger input, and
 # MobileNetTiny's 8-channel layers
@@ -3518,13 +3594,15 @@ def _bn_case(shape, act: str, scale: bool, momentum: float, seed: int):
     backward (`graph_ms`, gradients by `autograd.grad`, so nothing
     accumulates) for the kernels, the plain composition and the library's
     `F.batch_norm` on the channels-last view with the activation after
-    it; the bytes' bound."""
+    it, and the three-launch path's where the layer runs on chip
+    (`old_*`; the path's own elsewhere); the bytes' bound."""
     import copy
 
     import torch.nn.functional as F
 
     from spnet_tpu_torch.models.layers import ACTIVATIONS, BatchNorm
-    from spnet_tpu_torch.ops.batchnorm import _act_grad, batchnorm_train
+    from spnet_tpu_torch.ops.batchnorm import _act_grad, batchnorm_train, \
+        layer_plan
 
     c = shape[-1]
     g = torch.Generator(device=DEVICE).manual_seed(seed)
@@ -3545,9 +3623,14 @@ def _bn_case(shape, act: str, scale: bool, momentum: float, seed: int):
     def forward(bn, x, kernel: bool):
         return bn(x, act) if kernel else act_fn(bn.plain(x))
 
+    unit_scale = torch.ones(c, device=DEVICE)
+
     def library(bn, x):
-        y = F.batch_norm(x.permute(0, 3, 1, 2), None, None, bn.weight,
-                         bn.bias, training=True, eps=bn.eps)
+        # a scale of ones for a gamma-less layer: torch's batch norm
+        # backward gives no bias gradient without a weight
+        w = unit_scale if bn.weight is None else bn.weight
+        y = F.batch_norm(x.permute(0, 3, 1, 2), None, None, w, bn.bias,
+                         training=True, eps=bn.eps)
         return act_fn(y.permute(0, 2, 3, 1))
 
     def leaves(bn, x):
@@ -3557,18 +3640,20 @@ def _bn_case(shape, act: str, scale: bool, momentum: float, seed: int):
         return float((a - b).detach().float().abs().max()
                      / b.detach().float().abs().max())
 
-    n0 = batchnorm_train.launches
+    rows = x.numel() // c
+    plan = layer_plan(x, dy, 1)
+    n0, o0 = batchnorm_train.launches, batchnorm_train.onchip
     yk = forward(bn, x, True)
     _, stats, _, _ = yk.grad_fn.saved_tensors
     gk = torch.autograd.grad(yk, leaves(bn, x), dy)
     launches = batchnorm_train.launches - n0
+    onchip = batchnorm_train.onchip - o0
     mean, rstd = stats.view(3, c)[0], stats.view(3, c)[1]
     mul = rstd if bn.weight is None else rstd * bn.weight.detach()
     twin = act_fn(((x.detach().float() - mean) * mul
                    + bn.bias.detach()).to(x.dtype))
     yp = forward(bp, x, False)
     gp = torch.autograd.grad(yp, leaves(bp, x), dy)
-    rows = x.numel() // c
     # dscale and dbias: the same float32 terms summed in other orders
     # (1e-4 of the sum of their magnitudes), and where the two outputs'
     # activation masks differ (statistics apart in their last bits put an
@@ -3613,70 +3698,121 @@ def _bn_case(shape, act: str, scale: bool, momentum: float, seed: int):
          "plain_fwd_ms": timed(plain, False), "plain_ms": timed(plain, True),
          "library_fwd_ms": timed(library, False),
          "library_ms": timed(library, True)}
+    if plan is None:
+        t.update(old_fwd_ms=t["fwd_ms"], old_ms=t["ms"])
+    else:
+        with _three_launch_path():
+            t.update(old_fwd_ms=timed(kernels, False),
+                     old_ms=timed(kernels, True))
     n = x.numel()
     return dict(bitwise_twin=bool(torch.equal(yk, twin)), **gaps,
                 ok_dparams=bool(ok), flips=int(flips.sum()),
-                launches=launches, bound_ms=1e3 * 10 * n / HBM_BYTES_PER_S,
+                launches=launches, onchip=onchip, plan=plan,
+                bound_ms=1e3 * 10 * n / HBM_BYTES_PER_S,
                 fwd_bound_ms=1e3 * 4 * n / HBM_BYTES_PER_S, **t)
+
+
+@contextlib.contextmanager
+def _three_launch_path():
+    """BatchNorm's three-launch path at every shape, the plan set aside:
+    phase 24's yardstick for the on-chip path."""
+    from spnet_tpu_torch.ops import batchnorm
+
+    saved = batchnorm.layer_plan
+    batchnorm.layer_plan = lambda *args, **kwargs: None
+    try:
+        yield
+    finally:
+        batchnorm.layer_plan = saved
 
 
 def phase_batchnorm(seed: int, smi: str) -> dict:
     """Phase 24: the train-mode BatchNorm kernels (`ops/batchnorm.py`) at
-    every distinct BatchNorm call of Xception-331's train step at
-    b=BN_BATCH (shape, activation) and at BN_EXTRA_SHAPES, bf16, against
-    the plain composition: the output bitwise the twin's arithmetic from
-    the kernels' statistics; output and dx within 2e-2 of their scale (one
-    bf16 rounding, through up to 435,600-row float32 sums); the running
-    mean's and variance's update within 1e-3 of its scale (float32
-    statistics apart in their last bits, the update taken from values
-    near 1); dscale and dbias channel by channel within 1e-4 of the sum of
-    their terms' magnitudes, plus the terms of the elements whose
-    activation mask differs; six launches a forward and backward.  Device
-    ms of the kernels, of the plain composition and of the library's
-    batch norm (`F.batch_norm`, training, on the channels-last view, and
-    the activation), forward and forward + backward, against the bound of
-    10 bytes an element (x, y forward; x, dy, dx backward); summed over
-    the step's 43 calls."""
+    every distinct BatchNorm call of the train cells' steps (Xception-331 at
+    b=16, Inception-ResNet-v2-331 at b=32: shape, activation, scale) and at
+    BN_EXTRA_SHAPES, bf16, against the plain composition: the output
+    bitwise the twin's arithmetic from the kernels' statistics; output and
+    dx within 2e-2 of their scale (one bf16 rounding, through up to
+    871,200-row float32 sums); the running mean's and variance's update
+    within 1e-3 of its scale (float32 statistics apart in their last bits,
+    the update taken from values near 1); dscale and dbias channel by
+    channel within 1e-4 of the sum of their terms' magnitudes, plus the
+    terms of the elements whose activation mask differs; the plan's
+    launches a forward and backward (2 on chip, 6 else) and on-chip
+    directions.  Device ms of the plan's path and of the three-launch path,
+    of the plain composition and of the library's batch norm
+    (`F.batch_norm`, training, on the channels-last view, and the
+    activation), forward and forward + backward, against the bound of 10
+    bytes an element (x, y forward; x, dy, dx backward); summed over each
+    step's calls; on an H100 the calls on chip BN_ONCHIP_CALLS's."""
+    from spnet_tpu_torch.ops.batchnorm import H100, _card
+
     t0 = time.perf_counter()
-    layers = _bn_layers("Xception", BN_BATCH)
-    cases = [(k, uses) for k, uses in sorted(layers.items())]
-    cases += [((shape, act, True, 0.99), 0) for shape, act in
+    keys = ("ms", "old_ms", "plain_ms", "library_ms", "bound_ms", "fwd_ms",
+            "old_fwd_ms", "plain_fwd_ms", "library_fwd_ms", "fwd_bound_ms")
+    res = {"layers": [], "steps": {}}
+    cases = []
+    for backbone, b in BN_BATCHES.items():
+        layers = _bn_layers(backbone, b)
+        res["steps"][backbone] = dict(dict.fromkeys(keys, 0.0), batch=b,
+                                      calls=sum(layers.values()),
+                                      onchip_calls=0)
+        cases += [(backbone, k, uses) for k, uses in sorted(layers.items())]
+    cases += [(None, (shape, act, True, 0.99), 0) for shape, act in
               BN_EXTRA_SHAPES]
-    res = {"layers": [], "step": dict.fromkeys(
-        ("ms", "plain_ms", "library_ms", "bound_ms", "fwd_ms",
-         "plain_fwd_ms", "library_fwd_ms", "fwd_bound_ms"), 0.0),
-        "calls": sum(layers.values())}
-    for (shape, act, scale, momentum), uses in cases:
+    for backbone, (shape, act, scale, momentum), uses in cases:
         r = _bn_case(shape, act, scale, momentum, seed)
-        print(f"[batchnorm] {shape} act {act or 'none'!r} x{uses}: "
-              f"fwd+bwd {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, "
-              f"library {r['library_ms']:.4f}, bound {r['bound_ms']:.4f}), "
-              f"fwd {r['fwd_ms']:.4f} ms (plain {r['plain_fwd_ms']:.4f}, "
-              f"library {r['library_fwd_ms']:.4f}, bound "
-              f"{r['fwd_bound_ms']:.4f}); output bitwise the twin's "
+        plan = r.pop("plan")
+        want = 2 if plan else 6
+        path = (f"on chip, clusters of {plan.cluster} x {plan.groups} "
+                f"groups of {plan.tw} thread(s)" if plan else "three-launch")
+        pct = 100 * r["bound_ms"] / r["ms"]
+        print(f"[batchnorm] {backbone or 'extra'} {shape} act "
+              f"{act or 'none'!r} x{uses}, {path}: fwd+bwd {r['ms']:.4f} ms "
+              f"({pct:.1f} % of bound; three-launch {r['old_ms']:.4f}, "
+              f"{100 * r['bound_ms'] / r['old_ms']:.1f} %; plain "
+              f"{r['plain_ms']:.4f}, library {r['library_ms']:.4f}, bound "
+              f"{r['bound_ms']:.4f}), fwd {r['fwd_ms']:.4f} ms "
+              f"(three-launch {r['old_fwd_ms']:.4f}, plain "
+              f"{r['plain_fwd_ms']:.4f}, library {r['library_fwd_ms']:.4f}, "
+              f"bound {r['fwd_bound_ms']:.4f}); output bitwise the twin's "
               f"{r['bitwise_twin']}, gap to the plain composition y "
               f"{r['y_gap']:.2e}, dx {r['dx_gap']:.2e}, dscale "
               f"{r['dscale_gap']:.2e}, dbias {r['dbias_gap']:.2e} (within "
               f"their sums' tolerance {r['ok_dparams']}, {r['flips']} "
               f"mask flips), running mean {r['mean_gap']:.2e}, var "
-              f"{r['var_gap']:.2e}; launches {r['launches']}  [{smi}]")
-        if not r["bitwise_twin"] or r["launches"] != 6 or \
+              f"{r['var_gap']:.2e}; launches {r['launches']}, on chip "
+              f"{r['onchip']}  [{smi}]")
+        if not r["bitwise_twin"] or r["launches"] != want or \
+                r["onchip"] != (2 if plan else 0) or \
                 not r["ok_dparams"] or \
                 not (r["y_gap"] <= 2e-2 and r["dx_gap"] <= 2e-2) or \
                 not (r["mean_gap"] <= 1e-3 and r["var_gap"] <= 1e-3):
             fail(f"batchnorm {shape} {act!r}: {r}")
-        res["layers"].append(dict(shape=shape, act=act, uses=uses, **r))
-        for k in res["step"]:
-            res["step"][k] += uses * r[k]
+        res["layers"].append(dict(backbone=backbone, shape=shape, act=act,
+                                  uses=uses, onchip_plan=plan and
+                                  plan._asdict(), **r))
+        if backbone:
+            st = res["steps"][backbone]
+            for k in keys:
+                st[k] += uses * r[k]
+            st["onchip_calls"] += uses * (plan is not None)
         torch.cuda.empty_cache()
-    st = res["step"]
-    print(f"[batchnorm] Xception-331 b={BN_BATCH}, {res['calls']} calls a "
-          f"step: fwd+bwd {st['ms']:.4f} ms (plain {st['plain_ms']:.4f}, "
-          f"library {st['library_ms']:.4f}, bound {st['bound_ms']:.4f}: "
-          f"{100 * st['bound_ms'] / st['ms']:.1f} % of bound), fwd "
-          f"{st['fwd_ms']:.4f} ms (plain {st['plain_fwd_ms']:.4f}, library "
-          f"{st['library_fwd_ms']:.4f}, bound {st['fwd_bound_ms']:.4f})  "
-          f"[{smi}]")
+    for backbone, st in res["steps"].items():
+        pin = BN_ONCHIP_CALLS[backbone, st["batch"]]
+        if _card(0) == H100 and st["onchip_calls"] != pin:
+            fail(f"batchnorm: {backbone} puts {st['onchip_calls']} calls on "
+                 f"chip, not the census's {pin}")
+        print(f"[batchnorm] {backbone}-331 b={st['batch']}, {st['calls']} "
+              f"calls a step ({st['onchip_calls']} on chip): fwd+bwd "
+              f"{st['ms']:.4f} ms ({100 * st['bound_ms'] / st['ms']:.1f} % "
+              f"of bound; three-launch {st['old_ms']:.4f}, plain "
+              f"{st['plain_ms']:.4f}, library {st['library_ms']:.4f}, bound "
+              f"{st['bound_ms']:.4f}), fwd {st['fwd_ms']:.4f} ms "
+              f"(three-launch {st['old_fwd_ms']:.4f}, plain "
+              f"{st['plain_fwd_ms']:.4f}, library {st['library_fwd_ms']:.4f}"
+              f", bound {st['fwd_bound_ms']:.4f})  [{smi}]")
+    res["step"] = res["steps"]["Xception"]
     res["seconds"] = time.perf_counter() - t0
     print(f"[batchnorm] phase 24 took {res['seconds']:.1f} s")
     return res
@@ -4036,6 +4172,12 @@ def main(argv=None):
          "fwd_ms": bnk["step"]["fwd_ms"],
          "fwd_plain_ms": bnk["step"]["plain_fwd_ms"],
          "fwd_library_ms": bnk["step"]["library_fwd_ms"],
+         "three_launch_ms": bnk["step"]["old_ms"],
+         "onchip_calls": bnk["step"]["onchip_calls"],
+         "irv2": {k: bnk["steps"]["InceptionResNetV2"][k] for k in
+                  ("ms", "old_ms", "bound_ms", "library_ms", "calls",
+                   "onchip_calls")},
+         "onchip": train["bn_onchip"],
          "max_y_gap": max(r["y_gap"] for r in bnk["layers"]),
          "max_dx_gap": max(r["dx_gap"] for r in bnk["layers"]),
          "max_dscale_gap": max(r["dscale_gap"] for r in bnk["layers"]),

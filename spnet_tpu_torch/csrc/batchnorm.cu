@@ -58,15 +58,49 @@
 // partials in a fixed order.  No float atomics: the results depend on the
 // shape alone, so a CUDA graph replays the eager steps' bits.
 //
+// On chip: one launch a direction.  Where a layer's rows fit, the
+// wrapper (`ops/batchnorm.py::onchip_plan`) takes batchnorm_onchip_fwd /
+// _bwd_kernel instead: the grid is (channel groups, K), launched as
+// clusters of K blocks (K <= 8, the portable size), one cluster a group of
+// TW * VW channels, each block of it over rows / K rows.  A block copies
+// its rows of x (and dy) once into shared memory with cp.async (every row
+// of a thread in flight at once), sums them as the reduction kernels do
+// (the row lanes by warp shuffles and one block barrier), publishes its
+// partials in its own shared memory and waits on the cluster's barrier;
+// then every block reads the K partials through distributed shared memory
+// in cluster-rank order (the same order on every block, so each finds the
+// same statistics, with no float atomics and no broadcast), finishes them
+// with the finalize kernels' arithmetic (rank 0 writes stats, the running
+// statistics, dscale and dbias) and runs the elementwise pass from the
+// slab it holds.  A second cluster barrier, its
+// arrival right after the remote reads and its wait at the end, keeps each
+// block's shared memory alive until the others have read it.  One launch
+// in place of three, x (and dy) read from device memory once, no scratch:
+// for the models' small layers the launches and the finalizes, not the
+// bytes, were most of the time.  Shared memory bounds it: a block's slab of
+// x and dy is rows / K x TW x VW x 2 elements, within what the card allows
+// a block beside the kernels' static shared memory, and the grid stays
+// within 0.9 blocks an SM, so that every cluster is resident at once (at
+// one block an SM an H100 holds clusters of 4 or 8 on only 120 of its SMs,
+// and a larger grid ran in two waves, slower than the three-launch path).
+// Inside a process group
+// of W > 1 ranks the all-reduce sits between the reduction and the
+// elementwise pass, so the wrapper keeps the three-launch path there.
+//
 // The C entries launch on the caller's stream, allocate nothing (the
 // wrapper hands in outputs and scratch from `torch.empty`) and return
 // cudaGetLastError().  dtype 0 is float32, 1 bfloat16.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <cstdint>
+#include <mutex>
 #include <type_traits>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -74,6 +108,7 @@ constexpr int THREADS = 256;
 constexpr int MAX_VW = 8;
 constexpr int UNROLL = 4;       // rows in flight a thread
 constexpr int BLOCKS_PER_SM = 4;
+constexpr int MAX_CLUSTER = 8;  // the portable cluster size
 // the codes of ops/batchnorm.py::ACTS
 constexpr int ACT_NONE = 0, ACT_RELU = 1, ACT_RELU6 = 2, ACT_LEAKY = 3;
 
@@ -228,6 +263,44 @@ __device__ __forceinline__ void sum_partials(const float* __restrict__ part,
   b = __shfl_sync(0xffffffffu, b, 0);
 }
 
+// rstd of a channel from its mean and E[x^2] (flax's fast variance,
+// clamped at 0); when stats is given, writes mean, rstd and keep (0 where
+// the variance was clamped) of channel c into it, and updates the running
+// statistics when running_mean is given.
+__device__ __forceinline__ float finish_channel(
+    float mean, float mean_sq, float eps, int C, int c,
+    float* __restrict__ stats, float* __restrict__ running_mean,
+    float* __restrict__ running_var, float momentum,
+    float one_minus_momentum) {
+  const float raw = __fsub_rn(mean_sq, __fmul_rn(mean, mean));
+  const float var = raw < 0.f ? 0.f : raw;
+  const float rstd = rsqrtf(__fadd_rn(var, eps));
+  if (stats) {
+    stats[c] = mean;
+    stats[C + c] = rstd;
+    stats[2 * C + c] = raw >= 0.f ? 1.f : 0.f;
+  }
+  if (running_mean) {
+    running_mean[c] = __fadd_rn(__fmul_rn(momentum, running_mean[c]),
+                                __fmul_rn(one_minus_momentum, mean));
+    running_var[c] = __fadd_rn(__fmul_rn(momentum, running_var[c]),
+                               __fmul_rn(one_minus_momentum, var));
+  }
+  return rstd;
+}
+
+// The dx pass's coefficients of channel c from its sums s1, s2 (inv_n =
+// 1 / the rows' count): a = mul, b = a s1 / n, cc = keep a rstd^2 s2 / n.
+__device__ __forceinline__ void grad_coefs(float s1, float s2, float rstd,
+                                           float keep,
+                                           const float* __restrict__ weight,
+                                           int c, float inv_n, float& a,
+                                           float& b, float& cc) {
+  a = weight ? __fmul_rn(rstd, weight[c]) : rstd;
+  b = a * s1 * inv_n;
+  cc = keep * a * rstd * rstd * s2 * inv_n;
+}
+
 // ---- forward ---------------------------------------------------------
 
 template <typename T, int VW>
@@ -303,17 +376,8 @@ __global__ void __launch_bounds__(THREADS)
     moments_out[C + c] = mean_sq;
     return;
   }
-  const float raw = __fsub_rn(mean_sq, __fmul_rn(mean, mean));
-  const float var = raw < 0.f ? 0.f : raw;
-  stats[c] = mean;
-  stats[C + c] = rsqrtf(__fadd_rn(var, eps));
-  stats[2 * C + c] = raw >= 0.f ? 1.f : 0.f;
-  if (running_mean) {
-    running_mean[c] = __fadd_rn(__fmul_rn(momentum, running_mean[c]),
-                                __fmul_rn(one_minus_momentum, mean));
-    running_var[c] = __fadd_rn(__fmul_rn(momentum, running_var[c]),
-                               __fmul_rn(one_minus_momentum, var));
-  }
+  finish_channel(mean, mean_sq, eps, C, c, stats, running_mean, running_var,
+                 momentum, one_minus_momentum);
 }
 
 template <typename T, int VW>
@@ -469,10 +533,8 @@ __global__ void __launch_bounds__(THREADS)
       return;
     }
   }
-  const float a = weight ? __fmul_rn(rstd, weight[c]) : rstd;
-  coef[c] = a;
-  coef[C + c] = a * s1 * inv_n;
-  coef[2 * C + c] = stats[2 * C + c] * a * rstd * rstd * s2 * inv_n;
+  grad_coefs(s1, s2, rstd, stats[2 * C + c], weight, c, inv_n, coef[c],
+             coef[C + c], coef[2 * C + c]);
 }
 
 template <typename T, int VW>
@@ -529,6 +591,316 @@ __global__ void __launch_bounds__(THREADS)
       g[k] = fmaf(ca[k], g[k], -fmaf(cc[k], xm[k], cb[k]));
     store<T, VW>(dx + off + (i - 1) * step * C, g);
   }
+}
+
+// ---- on chip: one launch a direction ----------------------------------
+
+// The cluster barrier in halves: arrive once this block is done reading
+// the others' shared memory, wait before it exits (so that its own stays
+// alive for their reads).  Every thread of the block runs both.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release;\n" : : : "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;\n" : : : "memory");
+}
+
+// One pack of VW channels from device memory into shared memory: with
+// cp.async (no registers, so a thread keeps every row of its slab in
+// flight at once) where the pack is 4, 8, 16 or 32 bytes; a 2-byte pack
+// (bf16, one channel) goes through a register.  Both addresses are
+// aligned to the pack.
+template <typename T, int VW>
+__device__ __forceinline__ void copy_in(T* smem, const T* gmem) {
+  constexpr int P = VW * sizeof(T);
+  if constexpr (P >= 16) {
+#pragma unroll
+    for (int i = 0; i < P / 16; ++i) {
+      const unsigned s = static_cast<unsigned>(
+          __cvta_generic_to_shared(smem + i * 16 / sizeof(T)));
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+                   : : "r"(s), "l"(gmem + i * 16 / sizeof(T)) : "memory");
+    }
+  } else if constexpr (P >= 4) {
+    const unsigned s =
+        static_cast<unsigned>(__cvta_generic_to_shared(smem));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n"
+                 : : "r"(s), "l"(gmem), "n"(P) : "memory");
+  } else {
+    *reinterpret_cast<Pack<T, VW>*>(smem) =
+        *reinterpret_cast<const Pack<T, VW>*>(gmem);
+  }
+}
+
+// Waits for this thread's copy_in()s: their data is then visible to it.
+__device__ __forceinline__ void copies_done() {
+  asm volatile("cp.async.wait_all;\n" : : : "memory");
+}
+
+// This block's place in the on-chip layout: its channel group's thread
+// column `col` (VW channels from col * VW), whether those channels exist,
+// and its rows [row0, row0 + n) of the cluster's rows.
+struct Slab {
+  int col, g, t, n;
+  long long row0;
+  bool live;
+};
+
+template <int VW>
+__device__ __forceinline__ Slab slab_of(long long rows, int C, int per_block,
+                                        unsigned rank) {
+  Slab sl;
+  sl.col = blockIdx.x * blockDim.x + threadIdx.x;
+  sl.g = blockDim.x * VW;  // channels of the group
+  sl.t = threadIdx.y * blockDim.x + threadIdx.x;
+  sl.live = sl.col < C / VW;
+  sl.row0 = (long long)rank * per_block;
+  const long long left = rows - sl.row0;
+  sl.n = left <= 0 ? 0 : (left < per_block ? (int)left : per_block);
+  return sl;
+}
+
+// The block's sums of a[] and b[] over its row lanes into part[j][t]
+// for the group's channel t < g: the lanes of a warp that share
+// threadIdx.x by a shuffle tree, then the warps' sums in warp order by
+// the group's first g threads.  One block barrier.
+template <int VW>
+__device__ __forceinline__ void block_partials(float a[VW], float b[VW],
+                                               float (*part)[THREADS]) {
+  __shared__ float warps[2][THREADS / 32][THREADS];
+  const int tw = blockDim.x;
+  const int lin = threadIdx.y * tw + threadIdx.x;
+  const int lane = lin & 31, warp = lin >> 5;
+  for (int o = 16; o >= tw; o >>= 1) {
+#pragma unroll
+    for (int k = 0; k < VW; ++k) {
+      a[k] += __shfl_xor_sync(0xffffffffu, a[k], o);
+      b[k] += __shfl_xor_sync(0xffffffffu, b[k], o);
+    }
+  }
+  if (lane < tw) {
+#pragma unroll
+    for (int k = 0; k < VW; ++k) {
+      warps[0][warp][threadIdx.x * VW + k] = a[k];
+      warps[1][warp][threadIdx.x * VW + k] = b[k];
+    }
+  }
+  __syncthreads();
+  if (lin < tw * VW) {
+    float sa = 0.f, sb = 0.f;
+#pragma unroll
+    for (int w = 0; w < THREADS / 32; ++w) {
+      sa += warps[0][w][lin];
+      sb += warps[1][w][lin];
+    }
+    part[0][lin] = sa;
+    part[1][lin] = sb;
+  }
+}
+
+// The sums over the cluster of every block's partials part[j][t] (j = 0,
+// 1), read through distributed shared memory (all reads issued first),
+// added in rank order.
+__device__ __forceinline__ void cluster_sums(cg::cluster_group& cluster,
+                                             float (*part)[THREADS], int t,
+                                             float& a, float& b) {
+  const unsigned k = cluster.num_blocks();
+  float pa[MAX_CLUSTER], pb[MAX_CLUSTER];
+#pragma unroll
+  for (unsigned r = 0; r < MAX_CLUSTER; ++r) {
+    if (r < k) {
+      const float* p = cluster.map_shared_rank(&part[0][0], r);
+      pa[r] = p[t];
+      pb[r] = p[THREADS + t];
+    }
+  }
+  a = 0.f;
+  b = 0.f;
+#pragma unroll
+  for (unsigned r = 0; r < MAX_CLUSTER; ++r) {
+    if (r < k) {
+      a += pa[r];
+      b += pb[r];
+    }
+  }
+}
+
+template <typename T, int VW>
+__global__ void __launch_bounds__(THREADS)
+    batchnorm_onchip_fwd_kernel(const T* __restrict__ x,
+                                const float* __restrict__ weight,
+                                const float* __restrict__ bias,
+                                T* __restrict__ y, float* __restrict__ stats,
+                                float* __restrict__ running_mean,
+                                float* __restrict__ running_var,
+                                long long rows, int C, int per_block,
+                                float inv_n, float momentum,
+                                float one_minus_momentum, float eps,
+                                int act) {
+  extern __shared__ __align__(16) unsigned char slab_bytes[];
+  __shared__ float part[2][THREADS];
+  __shared__ float cst[2][THREADS];  // mean, mul of the group's channels
+  cg::cluster_group cluster = cg::this_cluster();
+  const unsigned rank = cluster.block_rank();
+  const Slab sl = slab_of<VW>(rows, C, per_block, rank);
+  const int step = blockDim.y;
+  // local row r of this thread's VW channels at xs + r * g
+  T* xs = reinterpret_cast<T*>(slab_bytes) + threadIdx.x * VW;
+  const long long base = sl.row0 * C + (long long)sl.col * VW;
+  float s[VW], q[VW];
+#pragma unroll
+  for (int k = 0; k < VW; ++k) s[k] = q[k] = 0.f;
+  if (sl.live) {
+    for (int r = threadIdx.y; r < sl.n; r += step)
+      copy_in<T, VW>(xs + r * sl.g, x + base + (long long)r * C);
+    copies_done();
+    for (int r = threadIdx.y; r < sl.n; r += step) {
+      const Pack<T, VW> v =
+          *reinterpret_cast<const Pack<T, VW>*>(xs + r * sl.g);
+#pragma unroll
+      for (int k = 0; k < VW; ++k) {
+        const float f = to_f(v.v[k]);
+        s[k] += f;
+        q[k] = fmaf(f, f, q[k]);
+      }
+    }
+  }
+  block_partials<VW>(s, q, part);
+  cluster.sync();
+  const int c = blockIdx.x * sl.g + sl.t;
+  if (sl.t < sl.g && c < C) {
+    float sum, sum_sq;
+    cluster_sums(cluster, part, sl.t, sum, sum_sq);
+    const bool first = rank == 0;
+    const float mean = __fmul_rn(sum, inv_n);
+    const float rstd = finish_channel(
+        mean, __fmul_rn(sum_sq, inv_n), eps, C, c, first ? stats : nullptr,
+        first ? running_mean : nullptr, running_var, momentum,
+        one_minus_momentum);
+    cst[0][sl.t] = mean;
+    cst[1][sl.t] = weight ? __fmul_rn(rstd, weight[c]) : rstd;
+  }
+  cluster_arrive();
+  __syncthreads();
+  if (sl.live) {
+    float mean[VW], mul[VW], b[VW];
+#pragma unroll
+    for (int k = 0; k < VW; ++k) {
+      mean[k] = cst[0][threadIdx.x * VW + k];
+      mul[k] = cst[1][threadIdx.x * VW + k];
+      b[k] = bias[sl.col * VW + k];
+    }
+#pragma unroll 4
+    for (int r = threadIdx.y; r < sl.n; r += step) {
+      const Pack<T, VW> pk = *reinterpret_cast<const Pack<T, VW>*>(
+          xs + r * sl.g);
+      float v[VW];
+#pragma unroll
+      for (int k = 0; k < VW; ++k)
+        v[k] = activate<T>(normalized<T>(to_f(pk.v[k]), mean[k], mul[k],
+                                         b[k]),
+                           act);
+      store<T, VW>(y + base + (long long)r * C, v);
+    }
+  }
+  cluster_wait();
+}
+
+template <typename T, int VW>
+__global__ void __launch_bounds__(THREADS)
+    batchnorm_onchip_bwd_kernel(const T* __restrict__ x,
+                                const T* __restrict__ dy,
+                                const float* __restrict__ stats,
+                                const float* __restrict__ weight,
+                                const float* __restrict__ bias,
+                                T* __restrict__ dx,
+                                float* __restrict__ dweight,
+                                float* __restrict__ dbias, long long rows,
+                                int C, int per_block, float inv_n, int act) {
+  extern __shared__ __align__(16) unsigned char slab_bytes[];
+  __shared__ float part[2][THREADS];
+  __shared__ float cst[3][THREADS];  // a, b, c of the group's channels
+  cg::cluster_group cluster = cg::this_cluster();
+  const unsigned rank = cluster.block_rank();
+  const Slab sl = slab_of<VW>(rows, C, per_block, rank);
+  const int step = blockDim.y;
+  T* xs = reinterpret_cast<T*>(slab_bytes) + threadIdx.x * VW;
+  T* ds = xs + (long long)per_block * sl.g;
+  const long long base = sl.row0 * C + (long long)sl.col * VW;
+  float mean[VW], mul[VW], b[VW], s1[VW], s2[VW];
+#pragma unroll
+  for (int k = 0; k < VW; ++k) s1[k] = s2[k] = 0.f;
+  if (sl.live) {
+    channel_consts<VW>(stats, weight, bias, C, sl.col * VW, mean, mul, b);
+    for (int r = threadIdx.y; r < sl.n; r += step) {
+      const long long o = base + (long long)r * C;
+      copy_in<T, VW>(xs + r * sl.g, x + o);
+      copy_in<T, VW>(ds + r * sl.g, dy + o);
+    }
+    copies_done();
+    for (int r = threadIdx.y; r < sl.n; r += step) {
+      const Pack<T, VW> xv =
+          *reinterpret_cast<const Pack<T, VW>*>(xs + r * sl.g);
+      const Pack<T, VW> dv =
+          *reinterpret_cast<const Pack<T, VW>*>(ds + r * sl.g);
+      float xf[VW], df[VW], g[VW], xm[VW];
+#pragma unroll
+      for (int k = 0; k < VW; ++k) {
+        xf[k] = to_f(xv.v[k]);
+        df[k] = to_f(dv.v[k]);
+      }
+      grad_row<T, VW>(xf, df, mean, mul, b, act, g, xm);
+#pragma unroll
+      for (int k = 0; k < VW; ++k) {
+        s1[k] += g[k];
+        s2[k] = fmaf(g[k], xm[k], s2[k]);
+      }
+    }
+  }
+  block_partials<VW>(s1, s2, part);
+  cluster.sync();
+  const int c = blockIdx.x * sl.g + sl.t;
+  if (sl.t < sl.g && c < C) {
+    float t1, t2;
+    cluster_sums(cluster, part, sl.t, t1, t2);
+    const float rstd = stats[C + c];
+    if (rank == 0) {
+      dbias[c] = t1;
+      if (dweight) dweight[c] = __fmul_rn(t2, rstd);
+    }
+    grad_coefs(t1, t2, rstd, stats[2 * C + c], weight, c, inv_n,
+               cst[0][sl.t], cst[1][sl.t], cst[2][sl.t]);
+  }
+  cluster_arrive();
+  __syncthreads();
+  if (sl.live) {
+    float ca[VW], cb[VW], cc[VW];
+#pragma unroll
+    for (int k = 0; k < VW; ++k) {
+      ca[k] = cst[0][threadIdx.x * VW + k];
+      cb[k] = cst[1][threadIdx.x * VW + k];
+      cc[k] = cst[2][threadIdx.x * VW + k];
+    }
+#pragma unroll 4
+    for (int r = threadIdx.y; r < sl.n; r += step) {
+      const Pack<T, VW> xv =
+          *reinterpret_cast<const Pack<T, VW>*>(xs + r * sl.g);
+      const Pack<T, VW> dv =
+          *reinterpret_cast<const Pack<T, VW>*>(ds + r * sl.g);
+      float xf[VW], df[VW], g[VW], xm[VW];
+#pragma unroll
+      for (int k = 0; k < VW; ++k) {
+        xf[k] = to_f(xv.v[k]);
+        df[k] = to_f(dv.v[k]);
+      }
+      grad_row<T, VW>(xf, df, mean, mul, b, act, g, xm);
+#pragma unroll
+      for (int k = 0; k < VW; ++k)
+        g[k] = fmaf(ca[k], g[k], -fmaf(cc[k], xm[k], cb[k]));
+      store<T, VW>(dx + base + (long long)r * C, g);
+    }
+  }
+  cluster_wait();
 }
 
 // ---- launch ----------------------------------------------------------
@@ -710,4 +1082,182 @@ extern "C" int spnet_batchnorm_grad_dx(const void* x, const void* dy,
         static_cast<T*>(dx), rows, C, act);
   });
   return ok ? static_cast<int>(cudaGetLastError()) : invalid();
+}
+
+// ---- on chip ---------------------------------------------------------
+
+namespace {
+
+// Lets `fn` take what the card allows a block in dynamic shared memory
+// beside its static shared memory, once per kernel and device; returns
+// that many bytes (0 on an error).
+int allow_dynamic_smem(const void* fn) {
+  static std::mutex lock;
+  static const void* fns[64];
+  static int devs[64], bytes[64], n = 0;
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
+  std::lock_guard<std::mutex> guard(lock);
+  for (int i = 0; i < n; ++i)
+    if (fns[i] == fn && devs[i] == dev) return bytes[i];
+  int optin = 0;
+  cudaFuncAttributes fa;
+  if (cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev) != cudaSuccess ||
+      cudaFuncGetAttributes(&fa, fn) != cudaSuccess)
+    return 0;
+  const int dyn = optin - static_cast<int>(fa.sharedSizeBytes);
+  if (dyn <= 0 || cudaFuncSetAttribute(
+                      fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                      dyn) != cudaSuccess)
+    return 0;
+  if (n < 64) {
+    fns[n] = fn;
+    devs[n] = dev;
+    bytes[n++] = dyn;
+  }
+  return dyn;
+}
+
+// The grid of an on-chip launch: (groups, cluster) blocks of (tw, THREADS
+// / tw) threads in clusters of (1, cluster, 1), `smem` bytes of slab; the
+// error, or cudaSuccess.
+template <typename... Params, typename... Args>
+cudaError_t launch_cluster(void (*kernel)(Params...), int groups, int tw,
+                           int cluster, size_t smem, cudaStream_t stream,
+                           Args... args) {
+  const int allowed =
+      allow_dynamic_smem(reinterpret_cast<const void*>(kernel));
+  if (allowed <= 0) {
+    const cudaError_t e = cudaGetLastError();
+    return e != cudaSuccess ? e : cudaErrorInvalidValue;
+  }
+  if (smem > static_cast<size_t>(allowed)) return cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(groups, cluster);
+  cfg.blockDim = dim3(tw, THREADS / tw);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = cluster;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  const cudaError_t last = cudaGetLastError();
+  return err != cudaSuccess ? err : last;
+}
+
+// rows / cluster rounded up, the slab's rows a block; 0 for a layout the
+// kernels do not take
+long long onchip_rows(long long rows, int C, int vw, int tw, int cluster) {
+  const bool ok = rows > 0 && C > 0 &&
+                  (vw == 1 || vw == 2 || vw == 4 || vw == 8) && C % vw == 0 &&
+                  tw >= 1 && tw <= 32 && (tw & (tw - 1)) == 0 &&
+                  cluster >= 1 && cluster <= MAX_CLUSTER;
+  return ok ? (rows + cluster - 1) / cluster : 0;
+}
+
+}  // namespace
+
+// The bytes a block of the on-chip kernels may give its backward slab (x
+// and dy of its rows) on the card `device`: what the card allows a block
+// in shared memory, opted in (cudaDevAttrMaxSharedMemoryPerBlockOptin),
+// less the most static shared memory of any instance of the kernels, the
+// forward's half slab counted twice; 0 on an error.  The wrapper plans the
+// on-chip layout from it.
+extern "C" int spnet_batchnorm_onchip_smem(int device) {
+  int optin = 0;
+  if (cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             device) != cudaSuccess)
+    return 0;
+  long long slab = optin;
+  bool ok = true;
+  auto room = [&](const void* fn, int halves) {
+    cudaFuncAttributes fa;
+    ok = ok && cudaFuncGetAttributes(&fa, fn) == cudaSuccess;
+    if (ok)
+      slab = std::min(slab, halves * (optin - static_cast<long long>(
+                                                  fa.sharedSizeBytes)));
+  };
+  for (int dtype = 0; dtype < 2; ++dtype)
+    for (int vw = 1; vw <= MAX_VW; vw *= 2)
+      with_types(dtype, vw, [&](auto tv, auto wv) {
+        using T = decltype(tv);
+        constexpr int VW = decltype(wv)::value;
+        room(reinterpret_cast<const void*>(
+                 batchnorm_onchip_fwd_kernel<T, VW>),
+             2);
+        room(reinterpret_cast<const void*>(
+                 batchnorm_onchip_bwd_kernel<T, VW>),
+             1);
+      });
+  return ok && slab > 0 ? static_cast<int>(slab) : 0;
+}
+
+// The forward in one launch: stats (3, C) and, when running_mean is given,
+// the running statistics' update, as spnet_batchnorm_finalize; y as
+// spnet_batchnorm_apply.  tw threads across a group of tw * vw channels,
+// clusters of `cluster` blocks over the rows; inv_n = 1 / rows.
+extern "C" int spnet_batchnorm_onchip_fwd(
+    const void* x, const void* weight, const void* bias, void* y,
+    void* stats, void* running_mean, void* running_var, long long rows,
+    int C, int dtype, int vw, int tw, int cluster, float inv_n,
+    float momentum, float one_minus_momentum, float eps, int act,
+    void* stream) {
+  const long long per = onchip_rows(rows, C, vw, tw, cluster);
+  const int groups = per ? (C / vw + tw - 1) / tw : 0;
+  if (!per || per > (1 << 30) || groups > 65535 || act < 0 ||
+      act > ACT_LEAKY)
+    return invalid();
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaErrorInvalidValue;
+  with_types(dtype, vw, [&](auto tv, auto wv) {
+    using T = decltype(tv);
+    constexpr int VW = decltype(wv)::value;
+    err = launch_cluster(batchnorm_onchip_fwd_kernel<T, VW>, groups, tw,
+                         cluster, per * tw * VW * sizeof(T), s,
+                         static_cast<const T*>(x),
+                         static_cast<const float*>(weight),
+                         static_cast<const float*>(bias), static_cast<T*>(y),
+                         static_cast<float*>(stats),
+                         static_cast<float*>(running_mean),
+                         static_cast<float*>(running_var), rows, C,
+                         static_cast<int>(per), inv_n, momentum,
+                         one_minus_momentum, eps, act);
+  });
+  return static_cast<int>(err);
+}
+
+// The backward in one launch: dbias, dweight (when given) as
+// spnet_batchnorm_grad_finalize, dx as spnet_batchnorm_grad_dx; the
+// layout as spnet_batchnorm_onchip_fwd's, inv_n = 1 / rows.
+extern "C" int spnet_batchnorm_onchip_bwd(
+    const void* x, const void* dy, const void* stats, const void* weight,
+    const void* bias, void* dx, void* dweight, void* dbias, long long rows,
+    int C, int dtype, int vw, int tw, int cluster, float inv_n, int act,
+    void* stream) {
+  const long long per = onchip_rows(rows, C, vw, tw, cluster);
+  const int groups = per ? (C / vw + tw - 1) / tw : 0;
+  if (!per || per > (1 << 30) || groups > 65535 || act < 0 ||
+      act > ACT_LEAKY || !dbias)
+    return invalid();
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaErrorInvalidValue;
+  with_types(dtype, vw, [&](auto tv, auto wv) {
+    using T = decltype(tv);
+    constexpr int VW = decltype(wv)::value;
+    err = launch_cluster(batchnorm_onchip_bwd_kernel<T, VW>, groups, tw,
+                         cluster, 2 * per * tw * VW * sizeof(T), s,
+                         static_cast<const T*>(x), static_cast<const T*>(dy),
+                         static_cast<const float*>(stats),
+                         static_cast<const float*>(weight),
+                         static_cast<const float*>(bias),
+                         static_cast<T*>(dx), static_cast<float*>(dweight),
+                         static_cast<float*>(dbias), rows, C,
+                         static_cast<int>(per), inv_n, act);
+  });
+  return static_cast<int>(err);
 }

@@ -123,8 +123,14 @@ def load_library() -> ctypes.CDLL:
                                                   f, p, p]
     lib.spnet_batchnorm_grad_dx.argtypes = [p, p, p, p, p, p, p, ll, i, i, i,
                                             i, i, p]
+    lib.spnet_batchnorm_onchip_smem.argtypes = [i]
+    lib.spnet_batchnorm_onchip_fwd.argtypes = [p, p, p, p, p, p, p, ll, i, i,
+                                               i, i, i, f, f, f, f, i, p]
+    lib.spnet_batchnorm_onchip_bwd.argtypes = [p, p, p, p, p, p, p, p, ll, i,
+                                               i, i, i, i, f, i, p]
     for name in ("splits", "stats", "finalize", "apply", "grad_sums",
-                 "grad_finalize", "grad_dx"):
+                 "grad_finalize", "grad_dx", "onchip_smem", "onchip_fwd",
+                 "onchip_bwd"):
         getattr(lib, f"spnet_batchnorm_{name}").restype = i
     lib.spnet_adam_max_leaves.argtypes = []
     lib.spnet_adam_max_leaves.restype = i

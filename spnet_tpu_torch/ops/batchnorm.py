@@ -4,7 +4,7 @@ on the card.
 `models/layers.py::BatchNorm` takes `batchnorm_train` in train mode on a
 CUDA tensor; its plain composition (flax's arithmetic as float32 torch
 ops, `BatchNorm.plain`, then the activation) is the twin of these kernels
-and the only path on the CPU and in eval mode.  Three parts:
+and the only path on the CPU and in eval mode.  Four parts:
 
   * `batchnorm_train(x, bn, act)`: the kernels of `csrc/batchnorm.cu`
     through `BatchNormTrain`, an autograd function.  Forward: the stats
@@ -14,11 +14,18 @@ and the only path on the CPU and in eval mode.  Three parts:
     the dx coefficients), the dx pass.  Inside a process group of W > 1
     ranks the moments [E x, E x^2] are all-reduced between the stats and
     the finalize, and the two sums between the backward's finalize and dx
-    pass, as the plain composition's autograd-aware all-reduce does.  It
+    pass, as the plain composition's autograd-aware all-reduce does.  A
+    direction whose rows fit on chip (`onchip_plan`) runs as one launch
+    instead, a cluster of blocks per channel group that keeps its slab in
+    shared memory between the reduction and the elementwise pass.  It
     saves x and the (3, C) float32 statistics (mean, rstd, and 0 where the
     fast variance was clamped): no float32 copy of the activation.  On a
     CUDA tensor it launches or raises; `.launches` counts the kernels
-    launched (three a direction, four with a group).
+    launched (three a direction, four with a group, one on chip) and
+    `.onchip` the directions that took the one-launch path.
+  * `onchip_plan`: which path a direction takes, from its shape, the
+    world size and the card; `layer_plan` applies it to a layer's
+    tensors, for the wrapper and for whatever counts its launches.
   * `batchnorm_grad_torch`: the backward's formula in plain PyTorch, the
     kernels' arithmetic step for step (tests hold it against autograd of
     the plain composition in float64, and the kernels against it).
@@ -30,6 +37,7 @@ and the only path on the CPU and in eval mode.  Three parts:
 from __future__ import annotations
 
 import functools
+from typing import NamedTuple
 
 import torch
 import torch.distributed as dist
@@ -83,6 +91,108 @@ def batchnorm_grad_torch(x, dy, mean, rstd, keep, weight, bias,
     cc = keep * mul * rstd * rstd * s2 / n
     dx = (mul * g - (cc * xm + b)).to(x.dtype).reshape(x.shape)
     return dx, None if weight is None else s2 * rstd, s1
+
+
+#: threads a block of every kernel (`csrc/batchnorm.cu`'s THREADS)
+THREADS = 256
+#: the most blocks a cluster of the on-chip kernels: the portable size
+MAX_CLUSTER = 8
+#: the narrowest row of a group that still fills a 32-byte sector
+SECTOR_BYTES = 32
+#: (bytes a block of the on-chip kernels may give its backward slab, SMs)
+#: as an H100 80GB reports them (`_card`): the card whose sweep set
+#: `onchip_plan`
+H100 = (210_944, 132)
+
+
+class OnChip(NamedTuple):
+    """The one-launch layout of a direction: `groups` clusters, one a
+    group of `tw` * vw channels, each of `cluster` blocks over
+    `rows_per_block` rows (the last block's may be fewer)."""
+    cluster: int
+    tw: int
+    groups: int
+    rows_per_block: int
+
+
+@functools.lru_cache(maxsize=None)
+def onchip_plan(rows: int, c: int, vw: int, esize: int, world: int,
+                slab_bytes: int, sms: int) -> OnChip | None:
+    """The on-chip layout of a (rows, C) layer at vector width vw and
+    element size esize, or None for the three-launch path, on a card that
+    leaves a block `slab_bytes` of shared memory for the backward's slab
+    and has `sms` SMs.  Set from a sweep of every (tw, K) at the train
+    cells' shapes on an H100 (PERF.md):
+
+    * None inside a process group (world > 1: the all-reduce sits between
+      the reduction and the elementwise pass).
+    * tw, the group's threads across channels: the widest power of two up
+      to 32 (a warp reading 32 * vw contiguous channels of a row) at which
+      the groups at K = MAX_CLUSTER still fill the card's `sms` SMs; but
+      not below one 32-byte sector of a row unless the groups would then
+      fill under a third of the card (a narrower row reads each sector
+      half: 2048 x 128 took 9.0 µs at two threads, 10.0 at one).
+    * K: about three quarters of the card in blocks (sms * 3 / 4 //
+      groups, at most MAX_CLUSTER, at least 1), raised until the
+      backward's slab (x and dy of rows / K rows of the group) fits
+      `slab_bytes`; the grid stays within 0.9 blocks an SM, so that even
+      at one block an SM every cluster is resident at once (an H100 then
+      holds clusters of 4 or 8 on 120 of its 132 SMs; a grid of more ran
+      in two waves: 32x37x37x192 took 120 µs on chip, 80 on the
+      three-launch path).  Where no K fits, one thread fewer across a
+      group, down to one; then None."""
+    if world != 1:
+        return None
+    v = c // vw
+
+    def groups(tw: int) -> int:
+        return -(-v // tw)
+
+    tw = min(32, 1 << (v - 1).bit_length())
+    while tw > 1 and groups(tw) * MAX_CLUSTER < sms and (
+            tw // 2 * vw * esize >= SECTOR_BYTES
+            or 3 * groups(tw) * MAX_CLUSTER < sms):
+        tw //= 2
+    while True:
+        g = groups(tw)
+        first = max(1, min(MAX_CLUSTER, 3 * sms // 4 // g, rows))
+        for k in range(first, MAX_CLUSTER + 1):
+            if 10 * g * k > 9 * sms:
+                break
+            per = -(-rows // k)
+            if 2 * per * tw * vw * esize <= slab_bytes:
+                return OnChip(k, tw, g, per)
+        if tw == 1:
+            return None
+        tw //= 2
+
+
+@functools.lru_cache(maxsize=None)
+def _card(device_index: int) -> tuple[int, int]:
+    """(bytes a block of the on-chip kernels may give its backward slab,
+    SMs) of the card, as `onchip_plan` takes them."""
+    sms = torch.cuda.get_device_properties(device_index).multi_processor_count
+    fn = load_library().spnet_batchnorm_onchip_smem
+    slab = on_device(device_index, lambda stream: fn(device_index))
+    if slab <= 0:
+        raise RuntimeError(f"cannot read the shared memory of cuda:"
+                           f"{device_index}")
+    return slab, sms
+
+
+def layer_plan(x, dy=None, world: int | None = None,
+               card: tuple[int, int] | None = None) -> OnChip | None:
+    """The path of a direction of `batchnorm_train` over x (..., C), and
+    dy for the backward: `onchip_plan` at the vector width that C and
+    their pointers allow (`_vector_width`; a meta tensor's pointer counts
+    as aligned), in a group of `world` ranks (default: the mesh's), on
+    the card that holds x, or on `card` (slab bytes, SMs) where given."""
+    c = x.shape[-1]
+    world = mesh.world_size() if world is None else world
+    card = _card(x.device.index) if card is None else card
+    vw = _vector_width(c, x) if dy is None else _vector_width(c, x, dy)
+    return onchip_plan(x.numel() // c, c, vw, x.element_size(), world,
+                       *card)
 
 
 @functools.lru_cache(maxsize=None)
@@ -146,6 +256,7 @@ def batchnorm_train(x, bn, act: str = ""):
 
 
 batchnorm_train.launches = 0
+batchnorm_train.onchip = 0
 
 
 class BatchNormTrain(torch.autograd.Function):
@@ -161,35 +272,44 @@ class BatchNormTrain(torch.autograd.Function):
         dev = x.device.index
         dtype = _DTYPES[x.dtype]
         vw = _vector_width(c, x)
-        splits = _splits(rows, c, vw, dev)
-        f32 = dict(dtype=torch.float32, device=x.device)
-        part = torch.empty(splits * 2 * c, **f32)
-        stats = torch.empty(3 * c, **f32)
-        _launch("stats", dev, x.data_ptr(), part.data_ptr(), rows, c, dtype,
-                vw, splits)
         n_ranks = mesh.world_size()
+        f32 = dict(dtype=torch.float32, device=x.device)
+        stats = torch.empty(3 * c, **f32)
         running = (bn.running_mean, bn.running_var) if bn.update_stats \
             else (None, None)
         m = bn.momentum
-        finish = (stats.data_ptr(), *map(_ptr, running), m, 1 - m, bn.eps)
-        if n_ranks > 1:
-            moments = torch.empty(2 * c, **f32)
-            _launch("finalize", dev, part.data_ptr(), splits, c, 1.0 / rows,
-                    None, 1.0, moments.data_ptr(), None, None, None, m,
-                    1 - m, bn.eps)
-            dist.all_reduce(moments)
-            _launch("finalize", dev, None, 0, c, 1.0, moments.data_ptr(),
-                    float(n_ranks), None, *finish)
+        y = torch.empty_like(x)
+        plan = layer_plan(x, world=n_ranks)
+        if plan is not None:
+            _launch("onchip_fwd", dev, x.data_ptr(), _ptr(weight),
+                    bias.data_ptr(), y.data_ptr(), stats.data_ptr(),
+                    *map(_ptr, running), rows, c, dtype, vw, plan.tw,
+                    plan.cluster, 1.0 / rows, m, 1 - m, bn.eps, ACTS[act])
+            batchnorm_train.onchip += 1
         else:
-            _launch("finalize", dev, part.data_ptr(), splits, c, 1.0 / rows,
-                    None, 1.0, None, *finish)
+            splits = _splits(rows, c, vw, dev)
+            part = torch.empty(splits * 2 * c, **f32)
+            _launch("stats", dev, x.data_ptr(), part.data_ptr(), rows, c,
+                    dtype, vw, splits)
+            finish = (stats.data_ptr(), *map(_ptr, running), m, 1 - m,
+                      bn.eps)
+            if n_ranks > 1:
+                moments = torch.empty(2 * c, **f32)
+                _launch("finalize", dev, part.data_ptr(), splits, c,
+                        1.0 / rows, None, 1.0, moments.data_ptr(), None,
+                        None, None, m, 1 - m, bn.eps)
+                dist.all_reduce(moments)
+                _launch("finalize", dev, None, 0, c, 1.0,
+                        moments.data_ptr(), float(n_ranks), None, *finish)
+            else:
+                _launch("finalize", dev, part.data_ptr(), splits, c,
+                        1.0 / rows, None, 1.0, None, *finish)
+            _launch("apply", dev, x.data_ptr(), stats.data_ptr(),
+                    _ptr(weight), bias.data_ptr(), y.data_ptr(), rows, c,
+                    dtype, vw, splits, ACTS[act])
         if bn.update_stats:
             for t in running:
                 torch.autograd.graph.increment_version(t)
-        y = torch.empty_like(x)
-        _launch("apply", dev, x.data_ptr(), stats.data_ptr(), _ptr(weight),
-                bias.data_ptr(), y.data_ptr(), rows, c, dtype, vw, splits,
-                ACTS[act])
         ctx.save_for_backward(x, stats, weight, bias)
         ctx.act, ctx.n_ranks = ACTS[act], n_ranks
         return y
@@ -204,12 +324,20 @@ class BatchNormTrain(torch.autograd.Function):
         dtype = _DTYPES[x.dtype]
         dx = torch.empty_like(x)
         vw = _vector_width(c, x, dy)
-        splits = _splits(rows, c, vw, dev)
         f32 = dict(dtype=torch.float32, device=x.device)
-        part = torch.empty(splits * 2 * c, **f32)
-        coef = torch.empty(3 * c, **f32)
         dbias = torch.empty(c, **f32)
         dweight = None if weight is None else torch.empty(c, **f32)
+        plan = layer_plan(x, dy, ctx.n_ranks)
+        if plan is not None:
+            _launch("onchip_bwd", dev, x.data_ptr(), dy.data_ptr(),
+                    stats.data_ptr(), _ptr(weight), bias.data_ptr(),
+                    dx.data_ptr(), _ptr(dweight), dbias.data_ptr(), rows, c,
+                    dtype, vw, plan.tw, plan.cluster, 1.0 / rows, ctx.act)
+            batchnorm_train.onchip += 1
+            return dx, dweight, dbias, None, None
+        splits = _splits(rows, c, vw, dev)
+        part = torch.empty(splits * 2 * c, **f32)
+        coef = torch.empty(3 * c, **f32)
         _launch("grad_sums", dev, x.data_ptr(), dy.data_ptr(),
                 stats.data_ptr(), _ptr(weight), bias.data_ptr(),
                 part.data_ptr(), rows, c, dtype, vw, splits, ctx.act)

@@ -10,15 +10,21 @@ channel whose fast variance E[x^2] - E[x]^2 comes out negative and is
 clamped at 0 (where clamp_min passes no gradient).  In float64 the two
 differ only by the order of the sums.  And the layer's routing: on the CPU
 `BatchNorm.forward(x, act)` is the plain composition and then the
-activation, in both modes."""
+activation, in both modes.  And `onchip_plan`, which path a direction
+takes on the card, at the train cells' BatchNorm calls with an H100's
+values (`layer_plan` on meta tensors of their shapes)."""
+
+import functools
 
 import pytest
 import torch
 
+from spnet_tpu_torch.config import GridSpec, ModelConfig
 from spnet_tpu_torch.models.layers import ACTIVATIONS, BatchNorm, ConvBN, \
-    conv2d_nhwc
-from spnet_tpu_torch.ops.batchnorm import ACTS, batchnorm_grad_torch, \
-    batchnorm_train
+    Dropout, conv2d_nhwc
+from spnet_tpu_torch.models.spnet import build_model
+from spnet_tpu_torch.ops.batchnorm import ACTS, H100, MAX_CLUSTER, OnChip, \
+    _vector_width, batchnorm_grad_torch, batchnorm_train, layer_plan
 
 EPS, MOMENTUM = 1e-3, 0.99
 F64_RTOL = 1e-10  # float64: the sums' order alone
@@ -175,3 +181,124 @@ def test_unknown_activation_is_refused():
         BatchNorm(8)(torch.zeros(2, 8), "gelu")
     with pytest.raises(ValueError, match="act must be one of"):
         ConvBN(3, 8, act="gelu")(torch.zeros(1, 4, 4, 3))
+
+
+@functools.lru_cache(maxsize=None)
+def _census(backbone: str, batch: int) -> tuple:
+    """(rows, C) of each train-mode BatchNorm call of SPNet-`backbone` at
+    331 and `batch`, bf16, in order: forward pre-hooks on a forward at
+    batch 1 on the meta device (its dropouts in eval mode), rows scaled by
+    the batch."""
+    model = build_model(ModelConfig(backbone=backbone),
+                        num_outputs=GridSpec().num_outputs,
+                        device="meta").train()
+    for m in model.modules():
+        if isinstance(m, Dropout):
+            m.eval()
+    calls = []
+    for m in model.modules():
+        if isinstance(m, BatchNorm):
+            m.register_forward_pre_hook(lambda m, a: calls.append(
+                (batch * a[0].numel() // a[0].shape[-1], a[0].shape[-1])))
+    with torch.no_grad():
+        model(torch.zeros(1, 331, 331, 1, device="meta"))
+    return tuple(calls)
+
+
+def _meta(rows: int, c: int, esize: int = 2):
+    dtype = {2: torch.bfloat16, 4: torch.float32}[esize]
+    return torch.empty(rows, c, dtype=dtype, device="meta")
+
+
+def _vw(c: int) -> int:
+    return _vector_width(c, _meta(1, c))
+
+
+def _plan(rows: int, c: int, esize: int = 2, world: int = 1):
+    return layer_plan(_meta(rows, c, esize), world=world, card=H100)
+
+
+#: backbone, the train cell's batch, BatchNorm calls a forward, and the
+#: large ones that keep the three-launch path (rows)
+CELLS = [("Xception", 16, 43, [435600, 435600, 435600, 107584, 102400,
+                               102400, 102400, 25600, 25600]),
+         ("InceptionResNetV2", 32, 207, [871200, 871200, 871200, 215168,
+                                         204800, 204800, 43808])]
+
+
+@pytest.mark.parametrize("backbone,batch,calls,large", CELLS)
+def test_onchip_plan_takes_all_but_the_large_calls(backbone, batch, calls,
+                                                   large):
+    """At the train cells' shapes on an H100 every call takes the on-chip
+    path but the large ones: Xception's 3-channel stem, its 107,584- and
+    102,400-row layers and its two 25,600 x 256; IRv2's six of over
+    200,000 rows and its 43,808 x 192 (no K fits their slab within the
+    grid's 0.9 blocks an SM)."""
+    census = _census(backbone, batch)
+    assert len(census) == calls
+    old = sorted((rows for rows, c in census if _plan(rows, c) is None),
+                 reverse=True)
+    assert old == large
+    assert calls - len(large) == {"Xception": 34,
+                                  "InceptionResNetV2": 200}[backbone]
+
+
+@pytest.mark.parametrize("backbone,batch", [c[:2] for c in CELLS])
+@pytest.mark.parametrize("world", [2, 4, 8])
+def test_onchip_plan_never_in_a_group(backbone, batch, world):
+    """Inside a group the all-reduce sits between the passes: W > 1 keeps
+    the three-launch path at every shape, however small a rank's rows."""
+    for rows, c in _census(backbone, batch):
+        assert _plan(rows // world, c, world=world) is None
+
+
+@pytest.mark.parametrize("backbone,batch", [c[:2] for c in CELLS])
+def test_onchip_plan_layout(backbone, batch):
+    """Each on-chip plan of the census: clusters of at most MAX_CLUSTER
+    blocks, a power of two of threads across the group's channels and a
+    row of a group at least a 32-byte sector wide where the groups fill a
+    third of the card, the groups and rows a block that cover the layer,
+    the backward's slab within what the card leaves a block for it,
+    and at most 0.9 blocks an SM: one wave."""
+    slab, sms = H100
+    for rows, c in _census(backbone, batch):
+        p = _plan(rows, c)
+        if p is None:
+            continue
+        vw = _vw(c)
+        assert 1 <= p.cluster <= MAX_CLUSTER
+        assert p.tw in (1, 2, 4, 8, 16, 32)
+        wider = -(-(c // vw) // (2 * p.tw))  # the groups a step wider
+        assert p.tw * vw * 2 >= 32 or 3 * wider * MAX_CLUSTER < sms
+        assert p.groups == -(-(c // vw) // p.tw)
+        assert p.rows_per_block == -(-rows // p.cluster)
+        assert 2 * p.rows_per_block * p.tw * vw * 2 <= slab
+        assert 10 * p.groups * p.cluster <= 9 * sms
+
+
+@pytest.mark.parametrize("rows,c,plan", [
+    (10368, 32, OnChip(8, 1, 4, 1296)),    # IRv2's block35 branches
+    (288, 1536, OnChip(4, 8, 24, 72)),     # IRv2's conv_7b
+    (2048, 192, OnChip(8, 2, 12, 256)),    # IRv2's block17 branches
+    (1600, 728, OnChip(4, 4, 23, 400)),    # Xception's middle flow
+    (10368, 256, OnChip(6, 2, 16, 1728)),  # IRv2's 18x18 x 256
+    (25600, 128, OnChip(8, 2, 8, 3200)),   # K raised to fit the slab
+    (105, 11, OnChip(8, 2, 6, 14)),        # ragged: one channel a thread
+])
+def test_onchip_plan_as_documented(rows, c, plan):
+    assert _plan(rows, c) == plan
+
+
+@pytest.mark.parametrize("esize", [2, 4])
+def test_onchip_plan_limit(esize):
+    """The most rows on chip at 64 channels: K = MAX_CLUSTER blocks, one
+    thread of 8 channels across (eight groups fill under a third of the
+    card), x and dy of each block's rows in what is left of a block's
+    shared memory; a row more takes the three-launch path, and so does
+    float32 at half the bfloat16 rows."""
+    slab, _ = H100
+    per = slab // (2 * 8 * esize)
+    limit = MAX_CLUSTER * per
+    assert limit == {2: 52_736, 4: 26_368}[esize]
+    assert _plan(limit, 64, esize) == OnChip(MAX_CLUSTER, 1, 8, per)
+    assert _plan(limit + 1, 64, esize) is None

@@ -23,20 +23,30 @@ Each case checks, in the working type:
     in order; dscale and dbias 1e-5 of the sums of the terms' magnitudes),
     and against autograd of the plain composition (dx within two
     roundings to the type and 1e-4 of its scale: autograd rounds the
-    activation's gradient and the statistics' chain in other places);
-  * six launches a forward and backward.
+    activation's gradient and the statistics' chain in other places;
+    dbias 1e-4 of its value and 1e-5 of the largest sum of its terms'
+    magnitudes); where the two sides' statistics flip an element's
+    activation mask, dx and its channel's dbias besides by that element's
+    term, allowed only where the plain pre-activation lies within the
+    output's tolerance of the kink, and at most 1e-5 of the elements;
+  * the plan's launches a forward and backward (`ops/batchnorm.py::
+    layer_plan`): two where the layer fits on chip (one launch a
+    direction, both counted in `batchnorm_train.onchip`), six else.
 """
 
 import copy
+import math
 
 import pytest
 import torch
 
 from spnet_tpu_torch.models.layers import ACTIVATIONS, BatchNorm
-from spnet_tpu_torch.ops.batchnorm import batchnorm_grad_torch, \
-    batchnorm_train
+from spnet_tpu_torch.ops.batchnorm import H100, MAX_CLUSTER, _act_grad, \
+    _card, batchnorm_grad_torch, batchnorm_train, layer_plan
 
 ULP = {torch.bfloat16: 2.0 ** -7, torch.float32: 2.0 ** -23}
+#: where each activation's derivative jumps
+KINKS = {"": (), "relu": (0.0,), "relu6": (0.0, 6.0), "leaky": (0.0,)}
 
 
 @pytest.fixture
@@ -75,22 +85,30 @@ def _inputs(shape, dtype, seed: int, device, offset: int = 0):
 
 
 def _kernel_run(bn, x, dy, act):
-    before = batchnorm_train.launches
-    xa = x.detach().clone().requires_grad_(True)
+    before = batchnorm_train.launches, batchnorm_train.onchip
+    xa = x.detach().requires_grad_(True)  # x's own pointer, aligned or not
     y = bn(xa, act)
     _, stats, _, _ = y.grad_fn.saved_tensors
     y.backward(dy)
     return dict(y=y.detach(), dx=xa.grad, stats=stats.view(3, -1).clone(),
                 dw=None if bn.weight is None else bn.weight.grad.clone(),
                 db=bn.bias.grad.clone(),
-                launches=batchnorm_train.launches - before)
+                launches=batchnorm_train.launches - before[0],
+                onchip=batchnorm_train.onchip - before[1])
+
+
+def _onchip(x, dy) -> bool:
+    """Whether the plan puts the backward of a layer over x and dy on
+    chip, as the wrapper takes it."""
+    return layer_plan(x, dy, 1) is not None
 
 
 def _plain_run(bn, x, dy, act):
     xa = x.detach().clone().requires_grad_(True)
-    y = ACTIVATIONS[act](bn.plain(xa))
+    z = bn.plain(xa)
+    y = ACTIVATIONS[act](z)
     y.backward(dy)
-    return dict(y=y.detach(), dx=xa.grad,
+    return dict(z=z.detach(), y=y.detach(), dx=xa.grad,
                 dw=None if bn.weight is None else bn.weight.grad.clone(),
                 db=bn.bias.grad.clone())
 
@@ -125,8 +143,12 @@ def _check_case(shape, dtype, act, scale, cuda, offset=0, momentum=0.99,
                                rtol=1e-4, atol=0)
     assert torch.equal(k["y"], _twin_y(x, k["stats"], bn, act))
     scale_y = p["y"].float().abs().max()
+
+    def y_tol(v):
+        return max(ulp, 1e-4) * v.abs() + 1e-4 * scale_y
+
     assert ((k["y"].float() - p["y"].float()).abs()
-            <= max(ulp, 1e-4) * p["y"].float().abs() + 1e-4 * scale_y).all()
+            <= y_tol(p["y"].float())).all()
     if update_stats:
         torch.testing.assert_close(bn.running_mean, ref.running_mean,
                                    rtol=1e-5, atol=1e-6)
@@ -149,11 +171,34 @@ def _check_case(shape, dtype, act, scale, cuda, offset=0, momentum=0.99,
         spread = (xf.reshape(rows, c) - st[0]).abs().max(0).values
         assert ((k["dw"] - tdw).abs() <= 1e-5 * terms * spread
                 * st[1]).all()
+    # where statistics apart in their last bits put an output on the other
+    # side of the activation's kink, the two masks differ and so, by that
+    # element's own term (a dy, or 0.9 a dy for leaky), do dx and dbias:
+    # only where the plain pre-activation lies within the output's
+    # tolerance of a kink, at most 1e-5 of the elements
+    ones = torch.ones_like(k["y"])
+    flips = _act_grad(ones, k["y"], act) != _act_grad(ones, p["y"], act)
+    zp = p["z"].float()
+    near = torch.zeros_like(flips)
+    for kink in KINKS[act]:
+        near |= (zp - kink).abs() <= y_tol(zp)
+    n_flips = int(flips.sum())
+    assert not (flips & ~near).any(), "a mask flip away from the kink"
+    assert n_flips <= math.ceil(1e-5 * flips.numel()), f"{n_flips} flips"
+    mul = st[1] if w is None else st[1] * w
+    jump = flips * (mul * dy.float()).abs()
     assert ((k["dx"].float() - p["dx"].float()).abs()
-            <= 2 * ulp * p["dx"].float().abs() + 1e-4 * scale_dx).all()
-    torch.testing.assert_close(k["db"], p["db"], rtol=1e-4,
+            <= 2 * ulp * p["dx"].float().abs() + 1e-4 * scale_dx
+            + jump).all(), f"{n_flips} mask flips"
+    hit = flips.reshape(rows, c).any(0)
+    torch.testing.assert_close(k["db"][~hit], p["db"][~hit], rtol=1e-4,
                                atol=1e-5 * float(terms.max()))
-    assert k["launches"] == 6
+    flipped = (flips * dy.float().abs()).reshape(rows, c).sum(0)
+    assert ((k["db"] - p["db"]).abs() <= 1e-4 * p["db"].abs()
+            + 1e-5 * terms.max() + flipped)[hit].all()
+    onchip = _onchip(x, dy)
+    assert (k["launches"], k["onchip"]) == ((2, 2) if onchip else (6, 0))
+    return onchip
 
 
 # (shape, activation as the model has it there)
@@ -186,6 +231,9 @@ IRV2_SHAPES = [
     (32, 8, 8, 192),       # a block17 branch
     (32, 3, 3, 384),       # mixed_7a
     (32, 3, 3, 1536),      # conv_7b
+    (32, 37, 37, 192),     # three launches: no K fits the grid's bound
+    (32, 39, 39, 80),      # on chip, near the limit
+    (32, 80, 80, 64),      # three launches: over the limit
 ]
 
 
@@ -211,25 +259,73 @@ def test_kernels_match_twin_float32(cuda, shape, act):
 
 
 @pytest.mark.cuda
-def test_misaligned_view_and_frozen_stats(cuda):
+@pytest.mark.parametrize("hw", [(8, 20, 20), (16, 82, 82)])
+def test_misaligned_view_and_frozen_stats(cuda, hw):
     """A view one element into its buffer takes the narrower loads; the
     recompute of a checkpointed backbone leaves the running statistics;
-    NASNet's momentum."""
-    _check_case((8, 20, 20, 128), torch.bfloat16, "relu", True, cuda,
-                offset=1)
-    _check_case((8, 20, 20, 128), torch.bfloat16, "", True, cuda,
-                update_stats=False)
-    _check_case((8, 20, 20, 88), torch.bfloat16, "relu", False, cuda,
-                momentum=0.9997)
+    NASNet's momentum: on chip (3,200 rows) and on the three-launch path
+    (107,584 rows; the misaligned view's path is the plan's for one
+    channel a thread)."""
+    onchip = hw[1] == 20
+    _check_case((*hw, 128), torch.bfloat16, "relu", True, cuda, offset=1)
+    assert _check_case((*hw, 128), torch.bfloat16, "", True, cuda,
+                       update_stats=False) == onchip
+    assert _check_case((*hw, 88), torch.bfloat16, "relu", False, cuda,
+                       momentum=0.9997) == onchip
+
+
+def _bf16_plan(rows: int, c: int, device):
+    """The plan of a bf16 (rows, c) layer, its pointers aligned, on this
+    card."""
+    x = torch.empty(rows, c, dtype=torch.bfloat16, device="meta")
+    return layer_plan(x, world=1, card=_card(device.index or 0))
+
+
+def _onchip_limit(c: int, device) -> int:
+    """The most rows of a bf16 (rows, c) layer that the plan puts on
+    chip on this card."""
+    lo, hi = 1, 1 << 22
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        if _bf16_plan(mid, c, device) is None:
+            hi = mid
+        else:
+            lo = mid
+    return lo
 
 
 @pytest.mark.cuda
-def test_graph_replays_the_eager_bits(cuda):
+def test_an_h100_reports_the_plans_card(cuda):
+    """The values the CPU tests of the plan take (`ops/batchnorm.py::H100`)
+    are what an H100 reports: its SMs, and the shared memory a block of
+    the on-chip kernels may give its slab beside their static arrays."""
+    if "H100" not in torch.cuda.get_device_name(cuda):
+        pytest.skip("the plan's CPU tests take an H100's values")
+    assert _card(cuda.index or 0) == H100
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("past", [0, 1])
+def test_at_the_onchip_limit(cuda, past):
+    """bf16 just under the most rows the plan puts on chip (K =
+    MAX_CLUSTER, the slab filling the shared memory), and one row over
+    (the three-launch path)."""
+    limit = _onchip_limit(64, cuda)
+    assert _bf16_plan(limit, 64, cuda).cluster == MAX_CLUSTER
+    assert _check_case((limit + past, 64), torch.bfloat16, "relu", False,
+                       cuda) == (not past)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(16, 20, 20, 256), (16, 40, 40, 256)])
+def test_graph_replays_the_eager_bits(cuda, shape):
     """A forward and backward captured in a CUDA graph and replayed gives
     the eager call's output and gradients bitwise (no atomics: the sums'
-    order is fixed by the shape)."""
-    x, dy = _inputs((16, 40, 40, 256), torch.bfloat16, 1, cuda)
-    bn = _layer(256, True, 1, cuda)
+    order is fixed by the shape), on chip (6,400 rows) and on the
+    three-launch path (25,600 rows)."""
+    x, dy = _inputs(shape, torch.bfloat16, 1, cuda)
+    assert _onchip(x, dy) == (shape[1] == 20)
+    bn = _layer(shape[-1], True, 1, cuda)
     bn.update_stats = False
     eager = _kernel_run(bn, x, dy, "relu")
     xa = x.detach().clone().requires_grad_(True)
